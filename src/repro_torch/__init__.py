@@ -1,0 +1,8 @@
+"""PyTorch and CUDA port of the MOHAQ system (the JAX package ``repro`` is
+the reference it is tested against). Importing it imports no JAX and
+nothing of ``repro``; its CUDA kernels build at first use, not at import.
+
+Layout mirrors ``repro``: ``core/`` (quantization, population evaluator,
+NSGA-II search, the SRU search target), ``models/sru.py``, ``kernels/``
+(plain versions, wrappers, build) with the CUDA sources in ``csrc/``, and
+``data/synthetic.py``."""

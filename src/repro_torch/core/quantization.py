@@ -1,0 +1,206 @@
+"""Post-training quantization primitives (paper §4.1), in PyTorch.
+
+Port of the reference package's ``core/quantization.py``:
+
+- symmetric integer linear quantization with MMSE-selected clipping
+  thresholds, ranges [-128,127] / [-8,7] / [-2,1] for 8/4/2 bits;
+- 16-bit fixed point for recurrent vectors, biases and 16-bit layers;
+- activation ranges from calibration (median of per-batch max-abs);
+- the straight-through estimator as ``x + (q - x).detach()``.
+
+Bitwise parity with the reference rests on three habits: ``torch.round``
+rounds half to even like ``jnp.round``; every grid divides by its scale
+(never multiplies by ``1/scale``); and every scale is a float32 tensor
+before it meets the data, as the reference's traced triples are.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ref as kref
+
+# paper's integer ranges
+INT_RANGES: Dict[int, Tuple[int, int]] = {8: (-128, 127), 4: (-8, 7), 2: (-2, 1)}
+SUPPORTED_BITS = (2, 4, 8, 16)
+
+
+def _f32(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` (Python/numpy scalar or tensor) as float32 on ``like``'s device."""
+    return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+
+
+def mmse_clip(x, bits: int, n_grid: int = 64) -> float:
+    """MMSE clipping threshold: grid-search the clip value minimizing
+    ||x - Q(x)||^2 (host numpy, as in the reference)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    x = np.asarray(x, np.float32)
+    absmax = float(np.abs(x).max()) or 1.0
+    lo, hi = INT_RANGES[bits]
+    best_c, best_e = absmax, np.inf
+    for frac in np.linspace(1.0 / n_grid, 1.0, n_grid):
+        c = absmax * frac
+        scale = c / hi
+        q = np.clip(np.round(x / scale), lo, hi) * scale
+        e = float(np.mean((x - q) ** 2))
+        if e < best_e:
+            best_e, best_c = e, c
+    return best_c
+
+
+def fixed_point_16(x: torch.Tensor) -> torch.Tensor:
+    """16-bit fixed point: int bits sized to the range, rest sign+fraction."""
+    absmax = torch.max(torch.abs(x))
+    int_bits = torch.ceil(torch.log2(torch.clamp(absmax, min=1e-9)))
+    int_bits = torch.clamp(int_bits, -14, 14)
+    frac_bits = 15.0 - torch.clamp(int_bits, min=0.0)
+    scale = torch.exp2(-frac_bits)
+    lim = 2.0 ** 15 - 1
+    return torch.clamp(torch.round(x / scale), -lim - 1, lim) * scale
+
+
+def quant_triple(bits: int, clip_or_range: float):
+    """Any menu precision as a (scale, lo, hi) triple so one forward serves
+    every allocation. 16-bit -> fixed-point grid. Host Python, copied."""
+    if bits == 16:
+        int_bits = int(np.ceil(np.log2(max(clip_or_range, 1e-9))))
+        frac_bits = 15.0 - max(int_bits, 0)
+        scale = 2.0 ** (-frac_bits)
+        return (scale, -32768.0, 32767.0)
+    lo, hi = INT_RANGES[bits]
+    return (clip_or_range / hi, float(lo), float(hi))
+
+
+def fake_quant_triple(x: torch.Tensor, scale, lo, hi,
+                      use_ste: bool = True) -> torch.Tensor:
+    """``clip(round(x / scale), lo, hi) * scale`` on a dynamic grid. The
+    grid may be scalars or tensors broadcastable against ``x`` (one grid
+    per population lane). ``use_ste`` returns ``x + (q - x).detach()``:
+    the value can differ from ``q`` in the last ulp, exactly as the
+    reference's ``x + stop_gradient(q - x)`` does."""
+    scale, lo, hi = _f32(scale, x), _f32(lo, x), _f32(hi, x)
+    q = torch.clamp(torch.round(x / scale), lo, hi) * scale
+    q = q.to(x.dtype)
+    return x + (q - x).detach() if use_ste else q
+
+
+# ---------------------------------------------------- quantized-weight banks
+#
+# The menu is {2, 4, 8, 16} bits and every grid freezes after calibration,
+# so a weight has at most |menu| fake-quantized forms in a whole search. A
+# bank stacks them: row k is the weight under menu entry k. Rows are pure
+# grid values (use_ste=False), the same expression every eval lane uses.
+
+def build_weight_bank(w: torch.Tensor, triples) -> torch.Tensor:
+    """(K, *w.shape) stack; row k is
+    ``fake_quant_triple(w, *triples[k], use_ste=False)``. ``triples``:
+    (K, 3) float32 (scale, lo, hi) rows from ``menu_triples``."""
+    triples = np.asarray(triples, np.float32)
+    return torch.stack([fake_quant_triple(w, t[0], t[1], t[2], use_ste=False)
+                        for t in triples])
+
+
+def menu_triples(bits_menu, clip_of_bits) -> np.ndarray:
+    """(K, 3) float32 of ``quant_triple`` rows for a per-layer menu."""
+    return np.asarray([quant_triple(b, clip_of_bits(b)) for b in bits_menu],
+                      np.float32)
+
+
+def menu_index_from_hi(w_hi: torch.Tensor,
+                       bits_menu=SUPPORTED_BITS) -> torch.Tensor:
+    """Map a grid-top value back to its menu slot (the bank row index).
+    Each menu entry has a distinct, exactly representable ``hi`` (1, 7, 127
+    for int grids; 32767 for the 16-bit grid), so the (P, L, 6) qp stack
+    alone carries each lane's bit-width. Runs on ``w_hi``'s device."""
+    tops = [32767.0 if b == 16 else float(INT_RANGES[b][1])
+            for b in bits_menu]
+    idx = torch.zeros(w_hi.shape, dtype=torch.int32, device=w_hi.device)
+    for t in sorted(tops)[:-1]:
+        idx = idx + (w_hi > t).to(torch.int32)
+    return idx
+
+
+# ------------------------------------------------ packed-integer weight banks
+#
+#     {"q2":  int8  (ceil(K/4), N)   4 codes/byte, kernels/ref.py layout
+#      "q4":  int8  (ceil(K/2), N)   2 codes/byte
+#      "q8":  int8  (K, N)
+#      "q16": int16 (K, N)           fixed-point codes
+#      "scale": f32 (|menu|, 1)}     the per-tensor grid scale of each row
+#
+# Codes are ``clip(round(w/s), lo, hi)`` on the f32 banks' triples and
+# dequantization is one f32 multiply by the same scale, so
+# ``dequant_packed_bank`` rebuilds the f32 bank bitwise.
+
+_PACK_BITS = (2, 4)          # menu entries stored packed in int8 containers
+
+
+def build_packed_weight_bank(w: torch.Tensor, triples,
+                             bits_menu=SUPPORTED_BITS) -> Dict[str, torch.Tensor]:
+    """Packed-integer bank of a 2-D ``w`` (contraction axis first)."""
+    if w.ndim != 2:
+        raise ValueError(f"packed banks require 2-D weights, got {tuple(w.shape)}")
+    triples = np.asarray(triples, np.float32)
+    if len(triples) != len(bits_menu):
+        raise ValueError(f"{len(triples)} triples for menu {bits_menu}")
+    bank = {}
+    for k, bits in enumerate(bits_menu):
+        s, lo, hi = (_f32(t, w) for t in triples[k])
+        codes = torch.clamp(torch.round(w / s), lo, hi).to(
+            torch.int16 if bits == 16 else torch.int8)
+        if bits in _PACK_BITS:
+            codes = kref.pack_weights(codes, bits)
+        bank[f"q{bits}"] = codes
+    bank["scale"] = torch.from_numpy(triples[:, 0:1].copy()).to(w.device)
+    return bank
+
+
+def dequant_packed_bank(packed: Dict[str, torch.Tensor],
+                        bits_menu=SUPPORTED_BITS) -> torch.Tensor:
+    """The (|menu|, K, N) f32 bank stack from a packed bank — bitwise equal
+    to ``build_weight_bank`` on the same weight and triples."""
+    return kref.dequant_packed_rows(packed, bits_menu)
+
+
+def packed_bank_nbytes(bank) -> int:
+    """Bytes a bank (packed dict, f32 stack or nested dict) occupies."""
+    if isinstance(bank, torch.Tensor):
+        return bank.numel() * bank.element_size()
+    if isinstance(bank, dict):
+        return sum(packed_bank_nbytes(v) for v in bank.values())
+    return 0
+
+
+class ActRangeCalibrator:
+    """Records per-layer activation ranges; expected range = median of the
+    observed max-abs values (paper: 70 sequences suffice)."""
+
+    def __init__(self):
+        self._ranges: Dict[str, list] = {}
+
+    def observe(self, name: str, value: torch.Tensor) -> None:
+        self._ranges.setdefault(name, []).append(
+            float(torch.max(torch.abs(value))))
+
+    def expected_ranges(self) -> Dict[str, float]:
+        return {k: float(np.median(v)) for k, v in self._ranges.items()}
+
+
+def compressed_bits(layer_weights: Dict[str, int], layer_bits: Dict[str, int],
+                    vector_weights: int = 0) -> int:
+    """Total model bits under a per-layer bit allocation; non-MxV vectors are
+    16-bit (paper §4.1)."""
+    total = sum(n * layer_bits[name] for name, n in layer_weights.items())
+    return total + vector_weights * 16
+
+
+def compression_ratio(layer_weights: Dict[str, int],
+                      layer_bits: Dict[str, int],
+                      vector_weights: int = 0,
+                      base_bits: int = 32) -> float:
+    n_all = sum(layer_weights.values()) + vector_weights
+    return (n_all * base_bits) / compressed_bits(
+        layer_weights, layer_bits, vector_weights)

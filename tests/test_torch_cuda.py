@@ -1,0 +1,135 @@
+"""The port's CUDA kernels on the card, each against its plain PyTorch
+version (scan: 1e-5; MxVs: rtol 1e-4 / atol 1e-3; the packed MxV bitwise
+equal to the f32 MxV on the dequantized bank), the wrappers' launch counts
+and layout checks, and the model's kernel lane against its plain lane.
+
+Every test is marked ``gpu`` and skips where no CUDA device is present.
+The file imports no JAX, so it runs on a machine that has only PyTorch:
+``python -m pytest -m gpu tests/test_torch_cuda.py``."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import quantization as Q
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+
+pytestmark = pytest.mark.gpu
+MENU = (2, 4, 8, 16)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(seed, shape, scale=1.0):
+    return torch.from_numpy((np.random.default_rng(seed).standard_normal(
+        shape) * scale).astype(np.float32))
+
+
+def _banks(seed, m, N, dev):
+    w = _rand(seed, (m, N), 0.3)
+    w[0, :3] = -w.abs().max() * 4               # the most negative codes
+    trips = Q.menu_triples(MENU, lambda b: float(w.abs().max()) if b == 16
+                           else Q.mmse_clip(w, b))
+    w = w.to(dev)
+    return Q.build_weight_bank(w, trips), Q.build_packed_weight_bank(w, trips)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 7, 13), (2, 33, 9, 550)])
+def test_sru_scan_kernels_match_plain(dev, shape):
+    P, B, T, n = shape
+    u = _rand(7, (P, B, T, 3 * n)).to(dev)
+    streams = (u[..., :n], u[..., n:2 * n], u[..., 2 * n:])
+    vecs = [_rand(8 + i, (n,), 0.5).to(dev) for i in range(4)]
+    before = ops.sru_scan_pop.launches
+    got = ops.sru_scan_pop(*streams, *vecs)
+    assert ops.sru_scan_pop.launches == before + 1
+    for g, w in zip(got, ref.sru_scan_pop_ref(*streams, *vecs)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    before = ops.sru_scan.launches
+    single = ops.sru_scan(*(s[1] for s in streams), *vecs)
+    assert ops.sru_scan.launches == before + 1
+    for g, w in zip(single, got):
+        assert torch.equal(g, w[1])
+
+
+@pytest.mark.parametrize("P,M,m,N", [(5, 70, 23, 130), (3, 64, 256, 64),
+                                     (2, 1, 1, 1)])
+def test_bank_kernels_match_plain(dev, P, M, m, N):
+    bank, packed = _banks(m + N, m, N, dev)
+    x = _rand(P, (P, M, m)).to(dev)
+    idx = torch.tensor([p % 4 for p in range(P)], dtype=torch.int32,
+                       device=dev)
+    mxv = ops.bank_mxv_pop(x, bank, idx)
+    torch.testing.assert_close(mxv, ref.bank_mxv_pop_ref(x, bank, idx),
+                               rtol=1e-4, atol=1e-3)
+    qmm = ops.bank_qmm_pop(x, packed, idx)
+    torch.testing.assert_close(qmm, ref.bank_qmm_pop_ref(x, packed, idx),
+                               rtol=1e-4, atol=1e-3)
+    assert torch.equal(qmm, ops.bank_mxv_pop(x, Q.dequant_packed_bank(packed),
+                                             idx))
+
+
+def test_wrappers_refuse_what_the_kernels_cannot_take(dev):
+    bank, packed = _banks(1, 6, 5, dev)
+    x = _rand(2, (3, 4, 6)).to(dev)
+    idx = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ops.bank_mxv_pop(x.transpose(1, 2).contiguous().transpose(1, 2),
+                         bank, idx)
+    with pytest.raises(ValueError):
+        ops.bank_mxv_pop(x, bank, idx.long())
+    with pytest.raises(ValueError):
+        ops.bank_qmm_pop(x, {**packed, "q4": packed["q4"][:-1]}, idx)
+    with pytest.raises(ValueError):
+        ops.bank_mxv_pop(x, bank.cpu(), idx)
+    u = _rand(3, (1, 2, 3, 12)).to(dev)
+    v = torch.zeros(4, device=dev)
+    with pytest.raises(ValueError):
+        ops.sru_scan_pop(u[..., :4], u[..., 4:8], u[..., 8:].transpose(1, 2)
+                         .contiguous().transpose(1, 2), v, v, v, v)
+
+
+def test_out_of_range_menu_index_poisons_its_lane(dev):
+    bank, _ = _banks(4, 8, 9, dev)
+    x = _rand(5, (2, 3, 8)).to(dev)
+    out = ops.bank_mxv_pop(x, bank, torch.tensor([1, 7], dtype=torch.int32,
+                                                 device=dev))
+    assert torch.isnan(out[1]).all()
+    torch.testing.assert_close(out[0], x[0] @ bank[1], rtol=1e-4, atol=1e-3)
+
+
+def test_model_kernel_lane_matches_plain_lane(dev):
+    """A tiny SRU on the card: the kernel lane (CUDA kernels) and the plain
+    lane give the same logits within the matmul tolerance, for f32 banks
+    with the u-bank, packed banks and per-lane requantization."""
+    from repro_torch.core import sru_experiment as X
+    from repro_torch.models import sru
+    cfg = sru.SRUModelConfig(name="tiny", input_dim=5, hidden=40, proj=24,
+                             n_sru_layers=3, n_outputs=33)
+    target = X.build_untrained_sru(cfg, seed=0, device=dev)
+    names = list(cfg.layer_names())
+    rng = np.random.default_rng(0)
+    allocs = [{nm: (int(rng.choice(MENU)), int(rng.choice(MENU)))
+               for nm in names} for _ in range(6)]
+
+    def logits(use_kernel, use_banks=True, bank_format="f32"):
+        ev = target.batched_evaluator(use_banks, bank_format, use_kernel)
+        return sru.forward_population(
+            target.params, cfg, ev._feats_all, ev._stack(allocs),
+            banks=ev._banks_for(target.params), use_kernel=use_kernel)
+
+    for kw in ({}, {"bank_format": "packed"}, {"use_banks": False}):
+        before = ops.launch_counts()
+        got = logits(True, **kw)
+        after = ops.launch_counts()
+        assert after["sru_scan_pop"] == before["sru_scan_pop"] + 6
+        assert sum(after.values()) > sum(before.values()) + 6
+        torch.testing.assert_close(got, logits(False, **kw), rtol=1e-4,
+                                   atol=1e-3)
