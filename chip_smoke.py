@@ -6,12 +6,16 @@
 Phases, each printing JSON lines:
 
 1. setup: build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-   call), print the card and its power limit;
+   per source, all at once, then one link; each command's seconds and
+   their sum, what one source after another would take, are printed),
+   print the card and its power limit;
 2. kernels: each kernel against its plain PyTorch version on seeded inputs
-   at the main path's full-width shapes and at a ragged shape
-   (scan: 1e-5; MxVs: rtol 1e-4 / atol 1e-3; the packed MxV bitwise equal
-   to the f32 MxV on the dequantized bank);
-3. main path: the inference-only MOHAQ search on the paper's model
+   at the search path's full-width shapes, at the serving path's (8 lanes
+   of a 16-frame chunk, and 4 lanes of a 7-frame ragged tail) and at a
+   ragged shape (scan: 1e-5; MxVs and ``quant_matmul``: rtol 1e-4 / atol
+   1e-3; the packed MxV bitwise equal to the f32 MxV on the dequantized
+   bank);
+3. search path: the inference-only MOHAQ search on the paper's model
    (``configs/sru_timit.py``, full width, seeded random weights, synthetic
    speech): calibrate, build banks, ``SearchSession(target, "silago",
    ("error", "speedup", "energy")).run(generations=2, pop=10, initial=40)``,
@@ -19,17 +23,45 @@ Phases, each printing JSON lines:
    Every kernel's launch count over that run must be > 0. Then, on
    generation 0's allocations, the kernel lane against the plain lane and
    the f32 bank format against the packed one;
-4. timing: each kernel, its plain version and the PyTorch library call
-   (CUDA events, after warm-up), one generation's evaluation per lane, and
-   peak device memory.
+4. lm_serve: stablelm-1.6b at full width (seeded random weights drawn on
+   the card), batch 4, a 128-token prompt and 32 greedy tokens through
+   ``serving/lm.py`` with the int8 head on ``quant_matmul``. At every step
+   the plain head runs on the same hidden state; a differing argmax is
+   allowed only where the plain top-2 margin is <= 1e-3. Reported: int8
+   vs dense bf16 head token agreement, prefill s, decode ms/token, peak
+   memory. ``quant_matmul`` must launch once per head run (33);
+5. front_serve: the paper's SRU (the search path's target) packed for 4
+   presets (weights 2/4/8/16 bits, activations 8) by
+   ``serving.pack_deployment``, loaded, routed over 3 SLO classes and
+   served by ``ContinuousBatcher(max_lanes=8, chunk=16)`` on 12 requests of
+   64-160 frames. ``bank_qmm_pop`` and ``sru_scan_pop`` must launch in
+   this phase. Checks: served logits against the scalar ``forward(qp=)``
+   per chunk (rtol 1e-4 / atol 1e-3; both run the bank GEMM on the card,
+   so this one is not independent of the kernels), and the same traffic
+   served on the plain PyTorch lane (``ServingEngine(use_kernel=False)``:
+   cuBLAS and the plain scan): argmax agreement >= 99.9 %, and logits
+   within the tolerance except in lanes where a rounding tie before an
+   activation grid fell the other way (``compare_by_ties``). The same tie
+   test holds the scalar forward with its MxVs on ``torch.matmul`` against
+   the scalar forward as it runs. Reported: the share of chunks bitwise
+   equal, frames/s, continuous vs serial dispatches;
+6. timing: each kernel, its plain version and the PyTorch library call
+   (CUDA events, after warm-up) at the main paths' shapes and at the
+   serving shapes, the scalar forward with its MxVs on ``bank_mxv_pop``
+   and on ``torch.matmul``, one generation's evaluation per lane, and peak
+   device memory.
 
+Each path (3, 4, 5) runs with the launch counts set to 0 just before it and
+read just after; the ``kernels`` line's ``launches`` add up those reads.
 The last line is ``{"ok": true, "device": {...}}``; a failed phase raises
 and the script exits non-zero. It exits non-zero, printing no result, where
 no CUDA device is present or the port's sources are missing.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -47,7 +79,10 @@ FP32_FLOP_S = 67e12
 # the state update (2 mul, 2 add) and h (1 mul)
 SCAN_FLOPS = 21
 
+SERVE_LANES, SERVE_CHUNK, SERVE_TAIL = 8, 16, 7
 SCAN_SHAPE = (16, 32, 48, 550)              # (P, B, T, n)
+SERVE_SCAN_SHAPES = ((SERVE_LANES, 1, SERVE_CHUNK, 550),
+                     (4, 1, SERVE_TAIL, 550))
 MXV_SHAPES = {                              # name: (P, M, m, N)
     "L": (16, 1536, 256, 1650),
     "Pr": (16, 1536, 1100, 256),
@@ -64,7 +99,13 @@ KERNELS = {
                      "src/repro/kernels/sru_scan.py:131"),
     "bank_qmm_pop": ("src/repro_torch/csrc/bank_qmm_pop.cu",
                      "src/repro/kernels/sru_scan.py:186"),
+    "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
+                     "src/repro/kernels/quant_matmul.py:57"),
 }
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 32
+QMM_SHAPES = {"head": (4, 2048, 100352),    # (M, K, N): the LM head
+              "ragged": (5, 1037, 1001)}
+SLOS = ("premium", "standard", "economy")
 
 
 def emit(obj) -> None:
@@ -120,15 +161,45 @@ def bank_inputs(shape, seed, dev):
     g = torch.Generator().manual_seed(seed)
     w = torch.randn((m, N), generator=g) / m ** 0.5
     w[0, :4] = -w.abs().max() * 4
-    sample = w.flatten()[:: max(1, w.numel() // 65536)].numpy()
     trips = Q.menu_triples(Q.SUPPORTED_BITS, lambda b: float(w.abs().max())
-                           if b == 16 else Q.mmse_clip(sample, b))
+                           if b == 16 else sampled_clip(w, b))
     w = w.to(dev)
     bank = Q.build_weight_bank(w, trips)
     packed = Q.build_packed_weight_bank(w, trips)
     x = torch.randn((P, M, m), generator=g).to(dev)
     idx = torch.from_numpy((np.arange(P) % 4).astype(np.int32)).to(dev)
     return x, bank, packed, idx
+
+
+def sampled_clip(w, bits):
+    """The MMSE clip of ``w`` taken from a strided sample of 65,536 weights:
+    the 64-step host search over a whole 205 M-weight LM head would take
+    minutes."""
+    from repro_torch.core import quantization as Q
+    w = w.flatten()
+    return Q.mmse_clip(w[:: max(1, w.numel() // 65536)].float(), bits)
+
+
+def qmm_inputs(shape, bits, seed, dev):
+    """x (M, K) and a (K, N) head packed at ``bits``, drawn on the card:
+    int8 clipped at max |w| (as ``serving.lm.int8_head``), 4 and 2 bits at
+    the sampled MMSE clip."""
+    import torch
+    from repro_torch.kernels import ops
+    M, K, N = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((K, N), generator=g, device=dev) / K ** 0.5
+    w[0, :4] = -w.abs().max() * 4
+    clip = float(w.abs().max()) if bits == 8 else sampled_clip(w, bits)
+    packed, scales = ops.pack_for_kernel(w, bits, clip)
+    x = torch.randn((M, K), generator=g, device=dev)
+    return x, packed, scales
+
+
+def qmm_cost(shape, packed):
+    M, K, N = shape
+    nbytes = 4 * M * K + packed.numel() + 4 * N + 4 * M * N
+    return nbytes, 2 * M * K * N
 
 
 def scan_cost(shape):
@@ -163,6 +234,8 @@ def phase_setup():
     log = (lib.parent / "build.log").read_text()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
+    # wall seconds of each nvcc (the compiles, then the link)
+    nvcc_s = [float(t) for t in re.findall(r"^\[([0-9.]+) s\]$", log, re.M)]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -170,74 +243,103 @@ def phase_setup():
     emit({"phase": "setup", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": round(build_s, 3),
+          "nvcc_s": nvcc_s, "nvcc_s_sum": round(sum(nvcc_s), 3),
           "library": str(lib.relative_to(REPO)), "ptxas": ptxas})
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
     return smi[0] if smi else None
 
 
-def phase_kernels(dev):
-    """Each kernel against its plain version; returns max abs errors at the
-    main path's shapes (scan: SCAN_SHAPE; MxVs: FC)."""
+def check_scan(shape, path, dev):
+    """``sru_scan_pop`` and ``sru_scan`` (lane 0's streams) against their
+    plain versions at ``shape``; returns their max abs errors."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    out = {}
+    streams, vecs = scan_inputs(shape, 1, dev)
+    single = [s[0] for s in streams]
+    for name, args, shp in (("sru_scan_pop", streams, shape),
+                            ("sru_scan", single, shape[1:])):
+        got = getattr(ops, name)(*args, *vecs)
+        want = getattr(ref, name + "_ref")(*args, *vecs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        out[name] = max(errs(g, w)[0] for g, w in zip(got, want))
+        emit({"phase": "kernels", "kernel": name, "path": path,
+              "shape": shp, "max_abs_err": out[name],
+              "max_rel_err": max(errs(g, w)[1] for g, w in zip(got, want)),
+              "tol": "rtol 1e-5, atol 1e-5"})
+    return out
+
+
+def check_banks(layer, shape, path, dev):
+    """``bank_mxv_pop`` (not at L0, whose f32 product comes from the
+    u-bank) and ``bank_qmm_pop`` against their plain versions at ``shape``,
+    and ``bank_qmm_pop`` bitwise against ``bank_mxv_pop`` on the
+    dequantized bank; returns their max abs errors."""
     import torch
     from repro_torch.core import quantization as Q
     from repro_torch.kernels import ops, ref
     out = {}
-    for label, shape in (("full", SCAN_SHAPE), ("ragged", (3, 5, 7, 13))):
-        streams, vecs = scan_inputs(shape, 1, dev)
-        got = ops.sru_scan_pop(*streams, *vecs)
-        want = ref.sru_scan_pop_ref(*streams, *vecs)
+    x, bank, packed, idx = bank_inputs(shape, 2, dev)
+    row = {"phase": "kernels", "path": path, "layer": layer, "shape": shape,
+           "tol": "rtol 1e-4, atol 1e-3"}
+    if layer != "L0":
+        got = ops.bank_mxv_pop(x, bank, idx)
+        want = ref.bank_mxv_pop_ref(x, bank, idx)
         torch.cuda.synchronize()
-        worst = max(errs(g, w)[0] for g, w in zip(got, want))
-        worst_rel = max(errs(g, w)[1] for g, w in zip(got, want))
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
-        emit({"phase": "kernels", "kernel": "sru_scan_pop", "shape": shape,
-              "max_abs_err": worst, "max_rel_err": worst_rel,
-              "tol": "rtol 1e-5, atol 1e-5"})
-        if label == "full":
-            out["sru_scan_pop"] = worst
-        single = [s[0] for s in streams]
-        got1 = ops.sru_scan(*single, *vecs)
-        want1 = ref.sru_scan_ref(*single, *vecs)
-        torch.cuda.synchronize()
-        worst1 = max(errs(g, w)[0] for g, w in zip(got1, want1))
-        for g, w in zip(got1, want1):
-            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
-        emit({"phase": "kernels", "kernel": "sru_scan", "shape": shape[1:],
-              "max_abs_err": worst1,
-              "max_rel_err": max(errs(g, w)[1] for g, w in zip(got1, want1)),
-              "tol": "rtol 1e-5, atol 1e-5"})
-        if label == "full":
-            out["sru_scan"] = worst1
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+        out["bank_mxv_pop"], r = errs(got, want)
+        emit({**row, "kernel": "bank_mxv_pop",
+              "max_abs_err": out["bank_mxv_pop"], "max_rel_err": r})
+    got_q = ops.bank_qmm_pop(x, packed, idx)
+    want_q = ref.bank_qmm_pop_ref(x, packed, idx)
+    on_deq = ops.bank_mxv_pop(x, Q.dequant_packed_bank(packed), idx)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_q, want_q, rtol=1e-4, atol=1e-3)
+    bitwise = bool(torch.equal(got_q, on_deq))
+    out["bank_qmm_pop"], r = errs(got_q, want_q)
+    emit({**row, "kernel": "bank_qmm_pop", "max_abs_err": out["bank_qmm_pop"],
+          "max_rel_err": r, "bitwise_equal_to_mxv_on_dequant": bitwise})
+    if not bitwise:
+        raise AssertionError(f"bank_qmm_pop != bank_mxv_pop on the "
+                             f"dequantized bank at {shape}")
+    return out
+
+
+def phase_kernels(dev):
+    """Each kernel against its plain version; returns max abs errors at the
+    search path's shapes (scan: SCAN_SHAPE; MxVs: FC) and ``quant_matmul``
+    at the LM head."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    out = {}
+    out.update(check_scan(SCAN_SHAPE, "search", dev))
+    check_scan((3, 5, 7, 13), "ragged", dev)
+    for shape in SERVE_SCAN_SHAPES:
+        check_scan(shape, "serving", dev)
     for name, shape in MXV_SHAPES.items():
-        x, bank, packed, idx = bank_inputs(shape, 2, dev)
-        row = {"phase": "kernels", "shape": shape,
-               "tol": "rtol 1e-4, atol 1e-3"}
-        if name != "L0":              # L0's f32 product comes from the u-bank
-            got = ops.bank_mxv_pop(x, bank, idx)
-            want = ref.bank_mxv_pop_ref(x, bank, idx)
+        errs_ = check_banks(name, shape,
+                            "ragged" if name == "ragged" else "search", dev)
+        if name == "FC":
+            out.update(errs_)
+    for name, (_, _, m, N) in MXV_SHAPES.items():
+        if name != "ragged":      # the serving step: a full chunk, a tail
+            for lanes, rows in ((SERVE_LANES, SERVE_CHUNK), (4, SERVE_TAIL)):
+                check_banks(name, (lanes, rows, m, N), "serving", dev)
+    for label, shape in QMM_SHAPES.items():
+        for bits in (8, 4, 2):
+            x, packed, scales = qmm_inputs(shape, bits, 6 + bits, dev)
+            got = ops.quant_matmul(x, packed, scales, bits)
+            want = ref.quant_matmul_ref(x, packed, scales, bits)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
             a, r = errs(got, want)
-            emit({**row, "kernel": "bank_mxv_pop", "layer": name,
-                  "max_abs_err": a, "max_rel_err": r})
-            if name == "FC":
-                out["bank_mxv_pop"] = a
-        got_q = ops.bank_qmm_pop(x, packed, idx)
-        want_q = ref.bank_qmm_pop_ref(x, packed, idx)
-        on_deq = ops.bank_mxv_pop(x, Q.dequant_packed_bank(packed), idx)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got_q, want_q, rtol=1e-4, atol=1e-3)
-        bitwise = bool(torch.equal(got_q, on_deq))
-        a, r = errs(got_q, want_q)
-        emit({**row, "kernel": "bank_qmm_pop", "layer": name,
-              "max_abs_err": a, "max_rel_err": r,
-              "bitwise_equal_to_mxv_on_dequant": bitwise})
-        if not bitwise:
-            raise AssertionError(f"bank_qmm_pop != bank_mxv_pop on the "
-                                 f"dequantized bank at {shape}")
-        if name == "FC":
-            out["bank_qmm_pop"] = a
+            emit({"phase": "kernels", "kernel": "quant_matmul", "bits": bits,
+                  "shape": shape, "max_abs_err": a, "max_rel_err": r,
+                  "tol": "rtol 1e-4, atol 1e-3"})
+            if label == "head" and bits == 8:
+                out["quant_matmul"] = a
     return out
 
 
@@ -295,9 +397,9 @@ def phase_main_path(dev):
             "test_error": r["test_error"], "speedup": r["speedup"],
             "energy": r["energy"], "compression": r["compression"]}})
     for name, n in counts.items():
-        if n <= 0:
+        if n <= 0 and name != "quant_matmul":       # the LM head's kernel
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path ({counts})")
+                                 f"search path ({counts})")
     for r in rows:
         if not np.isfinite([r["error"], r["test_error"]]).all():
             raise AssertionError(f"non-finite front row {r}")
@@ -317,7 +419,7 @@ def phase_main_path(dev):
     emit({"phase": "main_path", "generation0_lanes": len(allocs0),
           "generation0_eval_s": lanes_s, **cmp,
           "max_memory_allocated": peak})
-    return counts, lanes_s
+    return counts, target
 
 
 def compare_lanes(target, allocs):
@@ -372,9 +474,374 @@ def compare_lanes(target, allocs):
     return result
 
 
-def phase_timing(dev, max_err, counts, smi_line):
+def phase_lm_serve(dev):
+    """Greedy decode of stablelm-1.6b at full width with the int8 head on
+    ``quant_matmul``; returns the path's launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import lm
+
+    cfg = get_config("stablelm-1.6b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_lm(0, cfg, dev)
+    head = lm.int8_head(params, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=g, device=dev)
+    checks = []                  # per head run: (differing rows, margins)
+    hiddens = []
+
+    def checked_head(hidden):
+        """The kernel head, and the plain head on the same hidden state."""
+        y = head(hidden)
+        h2 = hidden.reshape(-1, hidden.shape[-1]).to(torch.float32)
+        plain = ref.quant_matmul_ref(h2, head.packed, head.scales, head.bits)
+        differ = y.reshape(plain.shape).argmax(-1) != plain.argmax(-1)
+        top2 = torch.topk(plain, 2, dim=-1).values
+        checks.append((int(differ.sum()),
+                       (top2[:, 0] - top2[:, 1])[differ].tolist()))
+        hiddens.append(h2)
+        return y
+
+    ops.reset_launch_counts()
+    quant = lm.decode_loop(params, cfg, tokens, LM_GEN, head_fn=checked_head)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    emit({"phase": "lm_serve", "model": cfg.name, "params": cfg.n_params(),
+          "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+          "head_runs": len(checks), "launches": counts,
+          "int8_head_bytes": head.nbytes, "setup_s": round(setup_s, 3)})
+    if counts["quant_matmul"] != LM_GEN + 1:
+        raise AssertionError(f"quant_matmul launched {counts['quant_matmul']}"
+                             f" times, expected one per head run "
+                             f"({LM_GEN + 1})")
+    margins = [m for _, ms in checks for m in ms]
+    if any(m > 1e-3 for m in margins):
+        raise AssertionError(f"kernel and plain int8 heads pick different "
+                             f"tokens at top-2 margins {sorted(margins)}")
+
+    # timing, the dense head and the int4 head (after the counts are read)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = tfm.prefill(params, cfg, tokens,
+                                max_len=LM_PROMPT + LM_GEN, head_fn=head)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    t0 = time.perf_counter()
+    for _ in range(LM_GEN):
+        logits, cache = tfm.decode_step(params, cfg, cache, nxt, head_fn=head)
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) / LM_GEN * 1e3
+    dense = lm.decode_loop(params, cfg, tokens, LM_GEN)
+    head4 = lm.quant_head(params, cfg, 4, sampled_clip(
+        tfm.logits_head_weight(params, cfg), 4))
+    h = torch.cat(hiddens)
+    w = tfm.logits_head_weight(params, cfg).to(torch.float32)
+    exact = h @ w
+    int4_agree = float((head4(h).argmax(-1) == exact.argmax(-1))
+                       .double().mean())
+    int8_agree = float((head(h).argmax(-1) == exact.argmax(-1))
+                       .double().mean())
+    emit({"phase": "lm_serve", "kernel_vs_plain_head": {
+        "positions": LM_BATCH * len(checks),
+        "positions_differ": sum(n for n, _ in checks),
+        "differing_margins": sorted(margins)},
+        "int8_vs_dense_bf16_token_agreement": float(
+            (quant == dense).double().mean()),
+        "head_argmax_agreement_vs_f32_head": {"int8": int8_agree,
+                                              "int4": int4_agree},
+        "prefill_s": prefill_s, "decode_ms_per_token": decode_ms,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del params, cache, exact, w
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def recording_act_quant(runs):
+    """While open, every activation fake-quantization (activations quantize
+    through the STE, weights without it) appends its input and grid
+    (x, scale, lo, hi) to ``runs[-1]["acts"]``."""
+    from repro_torch.core import quantization as Q
+    fq = Q.fake_quant_triple
+
+    def rec(x, scale, lo, hi, use_ste=True):
+        if use_ste:
+            runs[-1]["acts"].append((x, scale, lo, hi))
+        return fq(x, scale, lo, hi, use_ste)
+
+    Q.fake_quant_triple = rec
+    try:
+        yield
+    finally:
+        Q.fake_quant_triple = fq
+
+
+@contextlib.contextmanager
+def scalar_mxv_on_matmul():
+    """The scalar ``forward(qp=)`` with its MxVs on ``torch.matmul``
+    (cuBLAS) in place of ``bank_mxv_pop`` with P = 1."""
+    import torch
+    from repro_torch.models import sru
+    mxv = sru._mxv
+    sru._mxv = torch.matmul
+    try:
+        yield
+    finally:
+        sru._mxv = mxv
+
+
+def act_names(cfg):
+    """The model's activation quantizations in the order a forward runs
+    them: L0, Pr1, L1, ..., FC."""
+    names = []
+    for i in range(cfg.n_sru_layers):
+        names += [f"L{i}"] + ([f"Pr{i + 1}"] if i < cfg.n_sru_layers - 1
+                              else [])
+    return names + ["FC"]
+
+
+def grid_codes(x, scale, lo, hi):
+    """The grid index ``clip(round(x / scale), lo, hi)`` that the quantizer
+    gives ``x`` (its STE output can differ from index * scale in the last
+    bit where it clips), and ``x / scale``; grids are scalars or one per
+    lane."""
+    import torch
+    f32 = [torch.as_tensor(v, dtype=torch.float32, device=x.device)
+           for v in (scale, lo, hi)]
+    t = x / f32[0]
+    return torch.clamp(torch.round(t), f32[1], f32[2]), t
+
+
+def compare_by_ties(runs_a, runs_b, names, rtol=1e-4, atol=1e-3):
+    """Two computations of the same forwards, lane by lane, from their
+    records (``recording_act_quant``; ``logits`` (lanes, T, classes)).
+
+    A lane whose activations take the same grid codes at every layer must
+    give logits within the tolerance. Otherwise take the first layer where
+    a code differs: its inputs must agree within the tolerance (upstream
+    both sides had the same codes, so only summation orders differ), and
+    every differing code must be one step apart, from inputs that lie on the
+    two sides of one rounding midpoint and within 1e-3 of a step of each
+    other: a tie that the two summation orders break differently. From there
+    on the lane's values may differ by whole grid steps, so its logits are
+    not held to the tolerance. Raises on any other difference; returns
+    counts and the worst readings (in grid steps)."""
+    import torch
+    st = {"lanes": 0, "lanes_bitwise": 0, "lanes_tie": 0, "tie_codes": 0,
+          "tie_layers": {}, "max_input_gap_steps": 0.0,
+          "max_midpoint_dist_steps": 0.0, "logits": 0,
+          "logits_out_of_tol": 0, "max_abs_logit_diff": 0.0}
+    for ra, rb in zip(runs_a, runs_b, strict=True):
+        la = torch.as_tensor(ra["logits"]).cpu()
+        lb = torch.as_tensor(rb["logits"]).cpu()
+        codes = [(grid_codes(*a), grid_codes(*b))
+                 for a, b in zip(ra["acts"], rb["acts"], strict=True)]
+        differs = torch.stack([(ka != kb).flatten(1).any(1)
+                               for (ka, _), (kb, _) in codes]).cpu()
+        for p in range(la.shape[0]):
+            out_tol = ~torch.isclose(la[p], lb[p], rtol=rtol, atol=atol)
+            st["lanes"] += 1
+            st["logits"] += out_tol.numel()
+            st["logits_out_of_tol"] += int(out_tol.sum())
+            st["max_abs_logit_diff"] = max(st["max_abs_logit_diff"], float(
+                (la[p] - lb[p]).abs().max()))
+            hit = differs[:, p].nonzero()
+            if len(hit) == 0:
+                if out_tol.any():
+                    raise AssertionError(
+                        f"{int(out_tol.sum())} logits outside rtol {rtol} / "
+                        f"atol {atol} with equal activation codes")
+                st["lanes_bitwise"] += int(torch.equal(la[p], lb[p]))
+                continue
+            j = int(hit[0])
+            torch.testing.assert_close(ra["acts"][j][0][p],
+                                       rb["acts"][j][0][p],
+                                       rtol=rtol, atol=atol)
+            (ka, ta), (kb, tb) = codes[j]
+            d = ka[p] != kb[p]
+            ka, kb = ka[p][d].double(), kb[p][d].double()
+            ta, tb = ta[p][d].double(), tb[p][d].double()
+            mid = (ka + kb) / 2
+            reading = {
+                "layer": names[j], "codes": int(d.sum()),
+                "one_step": bool(((ka - kb).abs() == 1).all()),
+                "straddle": bool(((ta - mid) * (tb - mid) <= 0).all()),
+                "input_gap_steps": float((ta - tb).abs().max()),
+                "midpoint_dist_steps": float(torch.maximum(
+                    (ta - mid).abs(), (tb - mid).abs()).max())}
+            if not (reading["one_step"] and reading["straddle"]
+                    and reading["input_gap_steps"] <= 1e-3):
+                raise AssertionError(f"an activation code differs by more "
+                                     f"than a tie: {reading}")
+            st["lanes_tie"] += 1
+            st["tie_codes"] += reading["codes"]
+            st["tie_layers"][names[j]] = st["tie_layers"].get(names[j], 0) + 1
+            for k in ("input_gap_steps", "midpoint_dist_steps"):
+                st["max_" + k] = max(st["max_" + k], reading[k])
+    return st
+
+
+def argmax_agreement(pairs):
+    """The share of frames whose argmax agrees, over (logits, logits)
+    pairs."""
+    import numpy as np
+    agree = frames = 0
+    for a, b in pairs:
+        am = np.asarray(a).argmax(-1)
+        agree += int((am == np.asarray(b).argmax(-1)).sum())
+        frames += am.size
+    return agree / frames
+
+
+def phase_front_serve(dev, target):
+    """The Pareto-front server on the paper's SRU; returns the path's
+    launch counts."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import serving as S
+    from repro_torch.kernels import ops
+    from repro_torch.models import sru
+
+    names = list(target.layer_names)
+    presets = [{n: (b, 8) for n in names} for b in (2, 4, 8, 16)]
+    # stand-in objective rows (the untrained model scores 100 % everywhere)
+    objectives = [{"error": e} for e in (12.0, 7.0, 3.0, 1.0)]
+    (REPO / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
+        manifest = S.pack_deployment(target, presets, d,
+                                     objectives=objectives)
+        art = S.DeploymentArtifact.load(d)
+    pack_s = time.perf_counter() - t0
+    engine = S.ServingEngine(art, device=dev)
+    plain = S.ServingEngine(art, device=dev, use_kernel=False)
+    rng = np.random.default_rng(0)
+    sizes = [64, 160] + rng.integers(64, 161, 10).tolist()
+    reqs = [S.Request(rid=i, slo=SLOS[i % 3],
+                      feats=rng.normal(size=(n, art.cfg.input_dim))
+                      .astype(np.float32)) for i, n in enumerate(sizes)]
+
+    def serve(eng, kind="ContinuousBatcher"):
+        bat = getattr(S, kind)(eng, S.Router(art), max_lanes=SERVE_LANES,
+                               chunk=SERVE_CHUNK, collect=True)
+        for r in reqs:
+            bat.submit(r)
+        return bat, bat.run_until_idle()
+
+    def traced_serve(eng):
+        """Serve the requests again, keeping each dispatch's record."""
+        runs, step = [], eng.step
+
+        def recorded_step(feats, qp):
+            runs.append({"acts": []})
+            runs[-1]["logits"] = step(feats, qp)
+            return runs[-1]["logits"]
+
+        eng.step = recorded_step
+        try:
+            with recording_act_quant(runs):
+                bat, _ = serve(eng)
+        finally:
+            del eng.step
+        return bat, runs
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    cont, log = serve(engine)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    summary = log.summary()
+    ser, slog = serve(engine, "SerialGroupBatcher")
+
+    # every request's chunks through the scalar forward(qp=), as it runs and
+    # with its MxVs on torch.matmul, and the traffic again on both lanes
+    chunks = [(r.rid, s, torch.from_numpy(r.feats[s:s + SERVE_CHUNK])
+               .to(dev)[None], target.qp_for(presets[log.requests[r.rid]
+                                                     .alloc]))
+              for r in reqs for s in range(0, len(r.feats), SERVE_CHUNK)]
+
+    def traced_scalar():
+        runs = []
+        with recording_act_quant(runs):
+            for _, _, feats, qp in chunks:
+                runs.append({"acts": []})
+                runs[-1]["logits"] = sru.forward(target.params, target.cfg,
+                                                 feats, qp=qp)
+        return runs
+
+    scalar = traced_scalar()
+    with scalar_mxv_on_matmul():
+        scalar_mm = traced_scalar()
+    kern_bat, kern_runs = traced_serve(engine)
+    plain_bat, plain_runs = traced_serve(plain)
+
+    frames = chunks_eq = 0
+    worst = 0.0
+    for (rid, s, _, _), run in zip(chunks, scalar):
+        want = run["logits"][0].cpu().numpy()
+        part = cont.results[rid][s:s + SERVE_CHUNK]
+        np.testing.assert_allclose(part, want, rtol=1e-4, atol=1e-3)
+        worst = max(worst, float(np.abs(part - want).max()))
+        frames += part.shape[0]
+        chunks_eq += int(np.array_equal(part, want))
+    vs_scalar = {"frames": frames, "argmax_agreement": argmax_agreement(
+        (cont.results[rid][s:s + SERVE_CHUNK], run["logits"][0].cpu())
+        for (rid, s, _, _), run in zip(chunks, scalar)),
+        "max_abs_diff": worst, "chunks_bitwise_equal": chunks_eq / len(chunks)}
+    layer_order = act_names(target.cfg)
+    vs_plain = compare_by_ties(kern_runs, plain_runs, layer_order)
+    vs_plain["argmax_agreement"] = argmax_agreement(
+        (kern_bat.results[r.rid], plain_bat.results[r.rid]) for r in reqs)
+    mm = compare_by_ties(scalar, scalar_mm, layer_order)
+    mm["argmax_agreement"] = argmax_agreement(
+        (a["logits"][0].cpu(), b["logits"][0].cpu())
+        for a, b in zip(scalar, scalar_mm))
+    reruns_equal = all(
+        np.array_equal(cont.results[r.rid], ser.results[r.rid])
+        and np.array_equal(cont.results[r.rid], kern_bat.results[r.rid])
+        for r in reqs)
+    emit({"phase": "front_serve", "model": target.cfg.name,
+          "allocs": len(presets), "pack_s": round(pack_s, 3),
+          "bytes": manifest["bytes"], "requests": len(reqs),
+          "frames": sum(sizes), "completed": summary["n_completed"],
+          "frames_per_s": summary["tokens_per_s"],
+          "dispatches": sum(s.n_dispatches for s in log.steps),
+          "serial_dispatches": sum(s.n_dispatches for s in slog.steps),
+          "steps": len(log.steps), "launches": counts,
+          "by_slo": summary["by_slo"],
+          "served_vs_scalar": vs_scalar,
+          "kernel_vs_plain_lane": vs_plain,
+          "scalar_matmul_vs_scalar": mm,
+          "serial_and_rerun_logits_bitwise_equal": reruns_equal})
+    if summary["n_completed"] != len(reqs) or frames != sum(sizes):
+        raise AssertionError(f"served {summary['n_completed']} of "
+                             f"{len(reqs)} requests, {frames} frames")
+    for what, agree in (("served vs scalar", vs_scalar["argmax_agreement"]),
+                        ("kernel vs plain lane",
+                         vs_plain["argmax_agreement"])):
+        if agree < 0.999:
+            raise AssertionError(f"{what} argmax agreement {agree:.5f} "
+                                 f"< 0.999")
+    for name in ("bank_qmm_pop", "sru_scan_pop"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the server "
+                                 f"({counts})")
+    return counts
+
+
+def phase_timing(dev, max_err, counts, smi_line, target):
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.models import sru
     kernels = []
     streams, vecs = scan_inputs(SCAN_SHAPE, 3, dev)
     nbytes, flops = scan_cost(SCAN_SHAPE)
@@ -422,6 +889,69 @@ def phase_timing(dev, max_err, counts, smi_line):
         row["bank_qmm_pop_ms"] = cuda_ms(
             lambda: ops.bank_qmm_pop(x, packed, idx), 10)
         emit(row)
+    # the serving step's shapes: P lanes of one 16-frame chunk each
+    for name, (_, _, m, N) in MXV_SHAPES.items():
+        if name == "ragged":
+            continue
+        shp = (SERVE_LANES, SERVE_CHUNK, m, N)
+        x, bank, packed, idx = bank_inputs(shp, 5, dev)
+        qb = sum(packed[k].numel() * packed[k].element_size()
+                 for k in ("q2", "q4", "q8", "q16")) / (m * N * 4)
+        b, by = bound_ms(*mxv_cost(shp, idx, container_bytes_per_weight=qb))
+        emit({"phase": "timing", "serving_shape": name, "shape": shp,
+              "bank_qmm_pop_ms": cuda_ms(
+                  lambda: ops.bank_qmm_pop(x, packed, idx), 20),
+              "plain_ms": cuda_ms(
+                  lambda: ref.bank_qmm_pop_ref(x, packed, idx), 10),
+              "bound_ms": b, "bound_by": by})
+    shp = (SERVE_LANES, 1, SERVE_CHUNK, SCAN_SHAPE[3])
+    streams, vecs = scan_inputs(shp, 3, dev)
+    b, by = bound_ms(*scan_cost(shp))
+    emit({"phase": "timing", "serving_shape": "scan", "shape": shp,
+          "sru_scan_pop_ms": cuda_ms(
+              lambda: ops.sru_scan_pop(*streams, *vecs), 20),
+          "plain_ms": cuda_ms(lambda: ref.sru_scan_pop_ref(*streams, *vecs),
+                              5, 1),
+          "bound_ms": b, "bound_by": by})
+    # the scalar forward(qp=) (test error, the served step's oracle) with
+    # its MxVs on bank_mxv_pop (P = 1), as it runs, and on torch.matmul
+    qp = target.qp_for({n: (8, 8) for n in target.layer_names})
+    for feats in (target.val_subsets[0][0],
+                  target.val_subsets[0][0][:1, :SERVE_CHUNK]):
+        def fwd():
+            sru.forward(target.params, target.cfg, feats, qp=qp)
+        row = {"phase": "timing", "scalar_forward": list(feats.shape),
+               "bank_mxv_pop_ms": cuda_ms(fwd, 5)}
+        with scalar_mxv_on_matmul():
+            row["matmul_ms"] = cuda_ms(fwd, 5)
+        emit(row)
+    # quant_matmul at the LM head: int8 (the kernels line) and int4, beside
+    # the f32 matmul on the dequantized head and the dense bf16 head
+    shape = QMM_SHAPES["head"]
+    for bits in (8, 4):
+        x, packed, scales = qmm_inputs(shape, bits, 20 + bits, dev)
+        w_deq = (ref.unpack_weights(packed, bits, shape[1]).to(torch.float32)
+                 * scales[None, :])
+        b, by = bound_ms(*qmm_cost(shape, packed))
+        row = dict(
+            name="quant_matmul", shape=shape, bits=bits,
+            ms=cuda_ms(lambda: ops.quant_matmul(x, packed, scales, bits), 20),
+            plain_ms=cuda_ms(
+                lambda: ref.quant_matmul_ref(x, packed, scales, bits), 5),
+            bound_ms=b, bound_by=by,
+            library_ms=cuda_ms(lambda: torch.matmul(x, w_deq), 20))
+        del w_deq
+        if bits == 8:
+            kernels.append(row)
+            w_bf = torch.randn(shape[1:], device=dev, dtype=torch.bfloat16)
+            x_bf = x.to(torch.bfloat16)
+            emit({"phase": "timing", "dense_bf16_head_ms": cuda_ms(
+                lambda: torch.matmul(x_bf, w_bf), 20), "shape": shape,
+                "bound_ms": bound_ms(2 * (shape[1] * shape[2] + shape[0] * (
+                    shape[1] + shape[2])), 0)[0]})
+            del w_bf
+        else:
+            emit({"phase": "timing", **row})
     out = []
     for k in kernels:
         src, replaces = KERNELS[k["name"]]
@@ -447,12 +977,15 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
 
     smi_line = phase_setup()
     max_err = phase_kernels(dev)
-    counts, _ = phase_main_path(dev)
-    kernels = phase_timing(dev, max_err, counts, smi_line)
+    counts, target = phase_main_path(dev)
+    for path_counts in (phase_lm_serve(dev), phase_front_serve(dev, target)):
+        counts = {k: counts[k] + path_counts[k] for k in counts}
+    kernels = phase_timing(dev, max_err, counts, smi_line, target)
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:

@@ -1,1 +1,31 @@
-"""Model configurations of the port."""
+"""Model configurations of the port: ``get_config(arch_id)``."""
+import importlib
+
+_MODULES = {
+    "stablelm-1.6b": "stablelm_1_6b",
+    "sru_timit": "sru_timit",
+}
+
+# the reference's other architectures, and the ROADMAP.md queue-1 item that
+# ports their families
+_WAITING = {
+    "xlstm-350m": "item 8 (xLSTM)",
+    "jamba-1.5-large-398b": "item 10 (hybrid Mamba/attention)",
+    "granite-moe-1b-a400m": "item 10 (MoE)",
+    "qwen2-moe-a2.7b": "item 10 (MoE)",
+    "internvl2-26b": "item 10 (VLM frontend)",
+    "minicpm-2b": "item 10 (more dense configs)",
+    "starcoder2-7b": "item 10 (more dense configs)",
+    "deepseek-67b": "item 10 (more dense configs)",
+    "seamless-m4t-medium": "item 10 (encoder-decoder)",
+}
+
+
+def get_config(arch_id: str):
+    if arch_id in _MODULES:
+        return importlib.import_module(
+            f"repro_torch.configs.{_MODULES[arch_id]}").CONFIG
+    if arch_id in _WAITING:
+        raise KeyError(f"arch {arch_id!r} is not ported yet: ROADMAP.md "
+                       f"queue 1, {_WAITING[arch_id]}")
+    raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(_MODULES)}")

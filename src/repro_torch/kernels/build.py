@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``src/repro_torch/csrc``).
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
+One ``nvcc -c`` per ``csrc/*.cu``, all started together, compiles the
+sources for ``sm_90a``; one more ``nvcc`` links the objects into one shared
+library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, into ``build/kernels/<hash>/`` at the repository root
 (listed in ``.gitignore``), keyed by a hash of the sources, the flags and the
 compiler, so an edited source rebuilds and an unchanged one loads at once.
@@ -16,6 +17,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -23,7 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +40,7 @@ SIGNATURES = {
     "repro_bank_mxv_pop": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_bank_qmm_pop": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
                            _I, _I, _I, _I, _P],
+    "repro_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -65,32 +70,57 @@ def _digest(nvcc: str) -> str:
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     h.update(nvcc.encode())
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run every command at once; returns [(cmd, returncode, output,
+    seconds)] in the order given."""
+    def run(cmd):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        return (cmd, proc.returncode, proc.stdout + proc.stderr,
+                time.perf_counter() - t0)
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        return list(pool.map(run, cmds))
+
+
 def build() -> Path:
-    """Compile the library if it is missing; return its path. The compiler's
-    output (``-Xptxas -v``: registers, shared memory, spills per kernel) is
-    kept beside it in ``build.log``. Writes to a temporary file and renames,
-    so concurrent builders never load a half-written library."""
+    """Compile the library if it is missing; return its path. The
+    compilers' output (``-Xptxas -v``: registers, shared memory, spills per
+    kernel) and each command's wall seconds (a ``[<s> s]`` line) are kept
+    beside it in ``build.log``. Objects and library go to a temporary
+    directory that is renamed into place, so concurrent builders never load
+    a half-written library; the temporary directory never outlives the
+    call."""
     nvcc = nvcc_path()
     out = BUILD_ROOT / _digest(nvcc) / LIB_NAME
     if out.exists():
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_ROOT))
+    try:
+        srcs = sources()
+        objs = [str(tmp / f"{src.stem}.o") for src in srcs]
+        runs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                         for obj, src in zip(objs, srcs)])
+        if all(rc == 0 for _, rc, _, _ in runs):
+            runs += _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp / LIB_NAME),
+                               *objs]])
+        log = "".join(f"{' '.join(cmd)}\n[{secs:.3f} s]\n{text}"
+                      for cmd, _, text, secs in runs)
+        if any(rc != 0 for _, rc, _, _ in runs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        (tmp / "build.log").write_text(log)
+        try:
+            os.replace(tmp, out.parent)
+        except OSError:
+            if not out.exists():      # else another builder finished first
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 

@@ -21,6 +21,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core.quantization import INT_RANGES, _f32
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
@@ -219,7 +220,67 @@ def bank_step(x, bank, idx):
     return bank_mxv_pop(x, bank, idx)
 
 
-WRAPPERS = (sru_scan_pop, sru_scan, bank_mxv_pop, bank_qmm_pop)
+def pack_for_kernel(w, bits: int, clip: float):
+    """Quantize and pack a (K, N) weight for ``quant_matmul``: per-column
+    scales ``min(max|w[:, c]|, clip) / hi`` and codes
+    ``clip(round(w / scale), lo, hi)`` packed along K
+    (``ref.pack_weights``). Returns (packed (ceil(K * bits / 8), N) int8,
+    scales (N,) f32), bitwise the reference's for the same f32 weight."""
+    lo, hi = INT_RANGES[bits]
+    w = w.to(torch.float32)
+    absmax = torch.clamp(torch.max(torch.abs(w), dim=0).values, min=1e-9)
+    scales = torch.minimum(absmax, _f32(clip, w)) / _f32(hi, w)
+    q = torch.clamp(torch.round(w / scales[None, :]), lo, hi).to(torch.int8)
+    return ref.pack_weights(q, bits), scales
+
+
+def _check_qmm(x, packed_w, scales, bits):
+    name = "quant_matmul"
+    _check(bits in (2, 4, 8), f"{name}: bits must be 2, 4 or 8, got {bits}")
+    _check(x.dtype == torch.float32 and x.ndim == 2,
+           f"{name}: x must be (M, K) f32, got {x.dtype} {tuple(x.shape)}")
+    _check(packed_w.dtype == torch.int8 and packed_w.ndim == 2,
+           f"{name}: packed_w must be 2-D int8, got {packed_w.dtype} "
+           f"{tuple(packed_w.shape)}")
+    K = x.shape[1]
+    rows = -(-K * bits // 8)
+    _check(packed_w.shape[0] == rows,
+           f"{name}: packing misaligned for bits={bits}: K={K} needs "
+           f"ceil(K*bits/8)={rows} packed rows, got {packed_w.shape[0]}")
+    N = packed_w.shape[1]
+    _check(scales.dtype == torch.float32 and tuple(scales.shape) == (N,),
+           f"{name}: scales must be ({N},) f32, got {scales.dtype} "
+           f"{tuple(scales.shape)}")
+
+
+def quant_matmul(x, packed_w, scales, bits: int):
+    """y = x @ (unpack(packed_w, bits) * scales[None, :]): x (M, K) f32,
+    packed_w (ceil(K * bits / 8), N) int8 (``pack_for_kernel``), scales
+    (N,) f32, bits in {2, 4, 8}. Returns (M, N) f32. Shapes and packing
+    that do not fit raise ``ValueError`` on every device."""
+    _check_qmm(x, packed_w, scales, bits)
+    if x.device.type == "cpu":
+        return ref.quant_matmul_ref(x, packed_w, scales, bits)
+    name = "quant_matmul"
+    dev = x.device
+    _check_cuda(name, dev, packed_w=packed_w, scales=scales)
+    _check(x.is_contiguous() and packed_w.is_contiguous()
+           and scales.is_contiguous(), f"{name}: inputs must be contiguous")
+    M, K = x.shape
+    N = packed_w.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    if out.numel() == 0 or K == 0:
+        return out.zero_()
+    lib = build.load()
+    with torch.cuda.device(dev):
+        err = lib.repro_quant_matmul(_ptr(x), _ptr(packed_w), _ptr(scales),
+                                     _ptr(out), M, K, N, bits, _stream(dev))
+    _raise_on(err, name)
+    quant_matmul.launches += 1
+    return out
+
+
+WRAPPERS = (sru_scan_pop, sru_scan, bank_mxv_pop, bank_qmm_pop, quant_matmul)
 for _fn in WRAPPERS:
     _fn.launches = 0
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of every kernel on the search path, and the
+"""Plain PyTorch versions of every kernel of the port, and the
 packed-weight bit layout.
 
 Port of the reference package's ``kernels/ref.py``. These functions are the
@@ -66,6 +66,16 @@ def dequant_packed_rows(packed: Dict[str, torch.Tensor],
             codes = unpack_weights(codes, bits, k_dim)
         rows.append(codes.to(torch.float32) * packed["scale"][k][None, :])
     return torch.stack(rows)
+
+
+def quant_matmul_ref(x, packed_w, scales, bits: int):
+    """y = x @ (unpack(packed_w, bits) * scales[None, :]): x (M, K) f32;
+    packed_w (ceil(K * bits / 8), N) int8; scales (N,) f32 per output
+    channel. Each code is dequantized by one f32 multiply, then an f32
+    matmul. Returns (M, N) f32."""
+    k = x.shape[-1]
+    w = unpack_weights(packed_w, bits, k).to(torch.float32) * scales[None, :]
+    return torch.matmul(x.to(torch.float32), w)
 
 
 def sru_scan_pop_ref(uw, uf, ur, v_f, v_r, b_f, b_r):

@@ -151,6 +151,20 @@ def params_to_numpy(tree) -> Dict:
 
 # ---------------------------------------------------------------- forward
 
+def _mxv(x, w):
+    """x (..., m) @ w (m, N) as one bank MxV with P = 1
+    (``kernels.ops.bank_mxv_pop``: the kernel on a card, ``torch.bmm`` on
+    the CPU), so each output sums in the order the population lanes use
+    and a served chunk equals the scalar forward on it bitwise. A library
+    matmul would sum in another order (on the CPU ``torch.matmul`` does
+    already), and a last-bit difference before an activation grid can move
+    a value one grid step."""
+    idx = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    out = kops.bank_mxv_pop(x.reshape(1, -1, x.shape[-1]).contiguous(),
+                            w[None].contiguous(), idx)
+    return out.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
 def _sru_dir(dp, w, x, *, reverse: bool, quant16_vectors: bool):
     """One SRU direction with MxV weight ``w``. x: (B, T, m) -> (B, T, n).
     The recurrence runs through ``kernels.ops.sru_scan`` (the CUDA kernel
@@ -160,7 +174,7 @@ def _sru_dir(dp, w, x, *, reverse: bool, quant16_vectors: bool):
     if quant16_vectors:
         v = Q.fixed_point_16(v)
         b = Q.fixed_point_16(b)
-    u = torch.matmul(x, w)                                    # (B,T,3n)
+    u = _mxv(x, w)                                            # (B,T,3n)
     if reverse:
         u = u.flip(1)
     h, r, _ = kops.sru_scan(u[..., :n], u[..., n:2 * n], u[..., 2 * n:],
@@ -270,11 +284,9 @@ def forward(params, cfg: SRUModelConfig, feats,
         x = torch.cat([fw, bw], dim=-1)                       # (B,T,2n)
         if i < cfg.n_sru_layers - 1:
             pname = f"Pr{i + 1}"
-            x = torch.matmul(prep_x(pname, x),
-                             prep_w(pname, params[pname]["W"]))
+            x = _mxv(prep_x(pname, x), prep_w(pname, params[pname]["W"]))
     xq = prep_x("FC", x)
-    return torch.matmul(xq, prep_w("FC", params["FC"]["W"])) \
-        + params["FC"]["b"]
+    return _mxv(xq, prep_w("FC", params["FC"]["W"])) + params["FC"]["b"]
 
 
 def extend_banks_u0(banks, cfg: SRUModelConfig, feats, a_trips,
@@ -420,6 +432,30 @@ def forward_population(params, cfg: SRUModelConfig, feats, qp_stack,
             x = mxv_layer(q_act(pname, x), pname)
     xq = q_act("FC", x)
     return mxv_layer(xq, "FC") + params["FC"]["b"]
+
+
+def forward_decode_step(params, cfg: SRUModelConfig, feats, qp_stack,
+                        banks=None, use_kernel: Optional[bool] = None):
+    """One serving decode step: P request lanes, one chunk each.
+
+    ``feats``: (P, T, m), lane *i* holding request *i*'s current chunk of T
+    frames; ``qp_stack``: (P, L, 6), lane *i*'s row is request *i*'s
+    allocation (its grids, from which the banked lanes recover the menu
+    index). The whole mixed-allocation batch is one population forward with
+    per-lane feats, so a request with another allocation changes a gather
+    index, not the number of dispatches; on a card (``use_kernel`` default)
+    each MxV is one ``bank_qmm_pop`` (packed banks) and each recurrence one
+    ``sru_scan_pop`` launch.
+
+    The Bi-SRU is bidirectional, so a step is chunk-synchronous: each
+    lane's chunk runs the whole forward with fresh recurrent state, like the
+    scalar ``forward(qp=)`` on that chunk. Returns logits (P, T, n_outputs).
+    """
+    if feats.ndim != 3:
+        raise ValueError(f"decode-step feats must be (P, T, m), got "
+                         f"shape {tuple(feats.shape)}")
+    return forward_population(params, cfg, feats[:, None], qp_stack,
+                              banks=banks, use_kernel=use_kernel)[:, 0]
 
 
 def calibrate(params, cfg: SRUModelConfig, feats_batches) -> Dict[str, float]:

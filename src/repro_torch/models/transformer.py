@@ -1,0 +1,208 @@
+"""Decoder-only dense LM: init, forward, prefill and decode with a KV cache.
+
+Port of the dense family of the reference package's
+``models/transformer.py``. Layers are stacked on a leading axis, as in the
+reference's params (``params["blocks"]["attn"]["wq"]`` is (L, D, H, hd)), so
+``params_from_numpy`` carries its weights across unchanged; a Python loop
+over the stack takes the place of ``lax.scan``. Serving keeps a stacked
+bf16 KV cache, (L, B, max_len, KV, hd), which ``decode_step`` updates in
+place (the reference returns a new one). ``head_fn(hidden) -> logits``
+replaces the dense output head, e.g. with the quantized head of
+``serving/lm.py``.
+
+Not ported yet (ROADMAP.md queue 1, item 10): the hybrid (Jamba) and MoE
+families and the int8 KV cache (the reference's ``KV_CACHE_DTYPE`` lever).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import common as cm
+
+Params = Dict[str, Any]
+KV_CACHE_DTYPE = torch.bfloat16
+_NOT_PORTED = "ROADMAP.md queue 1, item 10"
+
+
+def _dense_only(cfg: ArchConfig) -> None:
+    if cfg.family not in ("dense", "vlm") or cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
+                                  f"not ported ({_NOT_PORTED})")
+
+
+# ------------------------------------------------------------------ blocks
+
+def init_block(generator, cfg: ArchConfig, layers: int) -> Params:
+    """``layers`` stacked attention blocks: norms, attention, MLP."""
+    ones = torch.ones((layers, cfg.d_model), dtype=torch.float32,
+                      device=generator.device)
+    return {"norm1": ones, "norm2": ones.clone(),
+            "attn": cm.init_attn(generator, cfg.d_model, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.head_dim,
+                                 stack=(layers,)),
+            "ffn": cm.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                               stack=(layers,))}
+
+
+def layer(blocks: Params, i: int) -> Params:
+    """Layer ``i``'s params: views into the stacked tensors."""
+    return cm.tree_map(lambda t: t[i], blocks)
+
+
+def attn_block_fwd(p, cfg: ArchConfig, x, positions, kv=None):
+    """One block over a whole sequence. ``kv`` (optional): a dict that
+    receives the block's rotated k and its v, for the prefill cache."""
+    h = cm.rms_norm(x, p["norm1"], cfg.norm_eps)
+    q, k, v = cm.attn_qkv(p["attn"], h, positions, cfg.rope_theta)
+    if kv is not None:
+        kv["k"], kv["v"] = k, v
+    o = cm.gqa_attention(q, k, v, causal=True)
+    x = x + cm.attn_out(p["attn"], o)
+    h = cm.rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + cm.mlp(p["ffn"], h)
+
+
+def attn_block_decode(p, cfg: ArchConfig, x, cache_k, cache_v, cur: int):
+    """x: (B, 1, D); cache_k/v: this layer's (B, S, KV, hd), updated in place
+    at position ``cur``. Attends over the whole cache with the first
+    ``cur + 1`` rows valid, as the reference does."""
+    h = cm.rms_norm(x, p["norm1"], cfg.norm_eps)
+    pos = torch.full((x.shape[0], 1), cur, dtype=torch.int32, device=x.device)
+    q, k, v = cm.attn_qkv(p["attn"], h, pos, cfg.rope_theta)
+    cache_k[:, cur:cur + 1] = k.to(cache_k.dtype)
+    cache_v[:, cur:cur + 1] = v.to(cache_v.dtype)
+    o = cm.gqa_attention(q, cache_k, cache_v, q_offset=cur, kv_valid=cur + 1,
+                         chunk_q=1 << 30, chunk_k=1 << 30)
+    x = x + cm.attn_out(p["attn"], o)
+    h = cm.rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + cm.mlp(p["ffn"], h)
+
+
+# ------------------------------------------------------------------ stacks
+
+def init_lm(seed: int, cfg: ArchConfig, device="cuda") -> Params:
+    """Random params in the reference layout, drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (on the card, so
+    that the 1.6 B parameters of stablelm-1.6b take seconds, not a host
+    ``randn`` of minutes). The values differ from the reference's
+    ``init_lm`` (threefry draws), and a seed gives other values on the CPU
+    than on a card."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D, V = cfg.d_model, cfg.padded_vocab
+    p: Params = {"embed": cm.normal_init(g, (V, D), 1.0 / math.sqrt(D)),
+                 "final_norm": torch.ones((D,), dtype=torch.float32,
+                                          device=dev)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = cm.normal_init(g, (D, V), 1.0 / math.sqrt(D))
+    p["blocks"] = init_block(g, cfg, cfg.n_layers)
+    return p
+
+
+def params_from_numpy(tree, device="cuda") -> Params:
+    """The reference's param pytree as nested dicts of numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, params)``; bf16 leaves are
+    ``ml_dtypes.bfloat16``) as the port's tensors, bitwise."""
+    dev = resolve_device(device)
+    return cm.tree_map(lambda a: cm.tensor_from_numpy(a, dev), tree)
+
+
+def params_to_numpy(tree) -> Dict:
+    """Inverse of ``params_from_numpy``."""
+    return cm.tree_map(cm.tensor_to_numpy, tree)
+
+
+def embed_tokens(p, cfg: ArchConfig, tokens, extra_embeds=None):
+    x = p["embed"][tokens].to(torch.bfloat16)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def logits_head_weight(p, cfg: ArchConfig):
+    """The (D, V) output-head weight (the embedding's transpose if tied)."""
+    return p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+
+
+def logits_head(p, cfg: ArchConfig, x):
+    """The dense head: f32 logits of the bf16 hidden state, cast to bf16."""
+    w = logits_head_weight(p, cfg)
+    logits = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    return logits.to(torch.bfloat16)
+
+
+@torch.no_grad()
+def forward(params, cfg: ArchConfig, tokens, extra_embeds=None):
+    """Full forward. tokens: (B, T) integer. Returns (B, T_total, V) bf16
+    logits."""
+    _dense_only(cfg)
+    x = embed_tokens(params, cfg, tokens, extra_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for i in range(cfg.n_layers):
+        x = attn_block_fwd(layer(params["blocks"], i), cfg, x, positions)
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return logits_head(params, cfg, x)
+
+
+# ------------------------------------------------------------------ serving
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"attn": {"k": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=dev),
+                     "v": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=dev)},
+            "cur": 0}
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ArchConfig, cache, token, head_fn=None):
+    """One decode step. token: (B, 1) integer. Returns (logits, cache): the
+    cache's tensors are updated in place and ``cur`` advances by one.
+
+    ``head_fn(hidden) -> logits`` overrides the dense output head."""
+    _dense_only(cfg)
+    x = embed_tokens(params, cfg, token)
+    cur = int(cache["cur"])
+    if cur >= cache["attn"]["k"].shape[2]:
+        raise ValueError(f"KV cache full: position {cur} of "
+                         f"{cache['attn']['k'].shape[2]}")
+    for i in range(cfg.n_layers):
+        x = attn_block_decode(layer(params["blocks"], i), cfg, x,
+                              cache["attn"]["k"][i], cache["attn"]["v"][i],
+                              cur)
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = head_fn(x) if head_fn is not None else logits_head(params, cfg, x)
+    return logits, {"attn": cache["attn"], "cur": cur + 1}
+
+
+@torch.no_grad()
+def prefill(params, cfg: ArchConfig, tokens, max_len: Optional[int] = None,
+            head_fn=None):
+    """Run the whole prompt and build a cache of ``max_len`` positions.
+    Returns (last-position logits (B, 1, V), cache). Each block's k and v
+    are stored as its forward computes them (the reference recomputes them
+    in its scan; the values are the same)."""
+    _dense_only(cfg)
+    B, T = tokens.shape
+    max_len = max_len or T
+    x = embed_tokens(params, cfg, tokens)
+    cache = init_cache(cfg, B, max_len, x.device)
+    positions = torch.arange(T, device=x.device)[None, :]
+    for i in range(cfg.n_layers):
+        kv: Dict[str, torch.Tensor] = {}
+        x = attn_block_fwd(layer(params["blocks"], i), cfg, x, positions, kv)
+        cache["attn"]["k"][i, :, :T] = kv["k"].to(KV_CACHE_DTYPE)
+        cache["attn"]["v"][i, :, :T] = kv["v"].to(KV_CACHE_DTYPE)
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    last = x[:, -1:]
+    logits = head_fn(last) if head_fn is not None \
+        else logits_head(params, cfg, last)
+    cache["cur"] = T
+    return logits, cache

@@ -76,6 +76,35 @@ def test_bank_kernels_match_plain(dev, P, M, m, N):
                                              idx))
 
 
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 1000), (3, 37, 130),
+                                   (9, 261, 255), (1, 1, 1)])
+def test_quant_matmul_matches_plain(dev, bits, M, K, N):
+    """Ragged M, N and K (K not filling the last packed byte, N not a
+    multiple of 4, M past one row tile) against the plain version."""
+    w = _rand(K + N + bits, (K, N))
+    w[0, :3] = -8.0                             # the most negative codes
+    packed, scales = ops.pack_for_kernel(w.to(dev), bits, 2.0)
+    x = _rand(M + bits, (M, K)).to(dev)
+    before = ops.quant_matmul.launches
+    got = ops.quant_matmul(x, packed, scales, bits)
+    assert ops.quant_matmul.launches == before + 1
+    torch.testing.assert_close(got, ref.quant_matmul_ref(x, packed, scales,
+                                                         bits),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_quant_matmul_refuses_what_the_kernel_cannot_take(dev):
+    packed, scales = ops.pack_for_kernel(_rand(1, (16, 8)).to(dev), 4, 1.0)
+    x = _rand(2, (4, 16)).to(dev)
+    with pytest.raises(ValueError, match="packing misaligned"):
+        ops.quant_matmul(x, packed[:-1].contiguous(), scales, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.quant_matmul(x.T.contiguous().T, packed, scales, 4)
+    with pytest.raises(ValueError, match="expected"):
+        ops.quant_matmul(x, packed.cpu(), scales, 4)
+
+
 def test_wrappers_refuse_what_the_kernels_cannot_take(dev):
     bank, packed = _banks(1, 6, 5, dev)
     x = _rand(2, (3, 4, 6)).to(dev)
@@ -103,6 +132,32 @@ def test_out_of_range_menu_index_poisons_its_lane(dev):
                                                  device=dev))
     assert torch.isnan(out[1]).all()
     torch.testing.assert_close(out[0], x[0] @ bank[1], rtol=1e-4, atol=1e-3)
+
+
+def test_served_step_equals_scalar_forward_bitwise(dev):
+    """The scalar ``forward(qp=)`` runs its MxVs through the bank kernel
+    with P = 1, so each lane of a packed-bank decode step (``bank_qmm_pop``,
+    ``sru_scan_pop``) equals the scalar forward on its chunk bit for bit,
+    ragged chunk lengths included."""
+    from repro_torch.core import batched_eval as B
+    from repro_torch.core import sru_experiment as X
+    from repro_torch.models import sru
+    cfg = sru.SRUModelConfig(name="tiny", input_dim=5, hidden=40, proj=24,
+                             n_sru_layers=3, n_outputs=33)
+    target = X.build_untrained_sru(cfg, seed=0, device=dev)
+    names = list(cfg.layer_names())
+    qps = [target.qp_for({nm: (b, 8) for nm in names}) for b in MENU]
+    stack = torch.as_tensor(np.asarray(B.stack_qps(qps, names), np.float32),
+                            device=dev)
+    banks = target.make_packed_banks(target.params)
+    for T in (16, 5):
+        feats = _rand(T, (4, T, 5)).to(dev)
+        served = sru.forward_decode_step(target.params, cfg, feats, stack,
+                                         banks=banks)
+        for lane, qp in enumerate(qps):
+            scalar = sru.forward(target.params, cfg, feats[lane][None],
+                                 qp=qp)[0]
+            assert torch.equal(served[lane], scalar), (T, lane)
 
 
 def test_model_kernel_lane_matches_plain_lane(dev):

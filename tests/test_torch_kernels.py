@@ -117,8 +117,13 @@ def test_wrappers_run_plain_versions_on_cpu_without_counting():
                        TR.bank_qmm_pop_ref(x, packed, idx))
     assert torch.equal(TO.bank_step(x, bank, idx),
                        TR.bank_mxv_pop_ref(x, bank, idx))
+    qw, qs = TO.pack_for_kernel(torch.from_numpy(w), 4, 1.0)
+    x2 = torch.from_numpy(_rand(4, (3, 6)))
+    assert torch.equal(TO.quant_matmul(x2, qw, qs, 4),
+                       TR.quant_matmul_ref(x2, qw, qs, 4))
     assert TO.launch_counts() == {"sru_scan_pop": 0, "sru_scan": 0,
-                                  "bank_mxv_pop": 0, "bank_qmm_pop": 0}
+                                  "bank_mxv_pop": 0, "bank_qmm_pop": 0,
+                                  "quant_matmul": 0}
 
 
 def test_stream_layout_check():
