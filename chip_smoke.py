@@ -8,13 +8,16 @@ Phases, each printing JSON lines:
 1. setup: build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once, then one link; each command's seconds and
    their sum, what one source after another would take, are printed),
-   print the card and its power limit;
+   print every bank-kernel instantiation's registers, spill bytes and
+   shared memory (from ``build.log``'s ptxas lines), the card and its power
+   limit;
 2. kernels: each kernel against its plain PyTorch version on seeded inputs
    at the search path's full-width shapes, at the serving path's (8 lanes
    of a 16-frame chunk, and 4 lanes of a 7-frame ragged tail) and at a
    ragged shape (scan: 1e-5; MxVs and ``quant_matmul``: rtol 1e-4 / atol
    1e-3; the packed MxV bitwise equal to the f32 MxV on the dequantized
-   bank);
+   bank); at FC every bank-GEMM tile configuration, forced, bitwise equal
+   to every other;
 3. search path: the inference-only MOHAQ search on the paper's model
    (``configs/sru_timit.py``, full width, seeded random weights, synthetic
    speech): calibrate, build banks, ``SearchSession(target, "silago",
@@ -47,9 +50,12 @@ Phases, each printing JSON lines:
    equal, frames/s, continuous vs serial dispatches;
 6. timing: each kernel, its plain version and the PyTorch library call
    (CUDA events, after warm-up) at the main paths' shapes and at the
-   serving shapes, the scalar forward with its MxVs on ``bank_mxv_pop``
-   and on ``torch.matmul``, one generation's evaluation per lane, and peak
-   device memory.
+   serving shapes; for the bank kernels the median and range of 5 repeats
+   beside ``torch.bmm`` with and without its ``index_select`` gather and
+   dequantize + ``bmm``, and at the serving shapes also device times from a
+   CUDA graph; the scalar forward with its MxVs on ``bank_mxv_pop`` and on
+   ``torch.matmul``, one generation's evaluation per lane, and peak device
+   memory.
 
 Each path (3, 4, 5) runs with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line's ``launches`` add up those reads.
@@ -62,6 +68,7 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -80,6 +87,7 @@ FP32_FLOP_S = 67e12
 SCAN_FLOPS = 21
 
 SERVE_LANES, SERVE_CHUNK, SERVE_TAIL = 8, 16, 7
+SMALL_ROWS = 32                             # timing: more calls per run below
 SCAN_SHAPE = (16, 32, 48, 550)              # (P, B, T, n)
 SERVE_SCAN_SHAPES = ((SERVE_LANES, 1, SERVE_CHUNK, 550),
                      (4, 1, SERVE_TAIL, 550))
@@ -130,6 +138,35 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_stats(fn, iters: int, repeats: int = 5) -> dict:
+    """``cuda_ms`` repeated: the median and the range of ``repeats``
+    timings of ``iters`` calls each (single short runs can be 2x off)."""
+    runs = sorted(cuda_ms(fn, iters, warmup=3 if i == 0 else 1)
+                  for i in range(repeats))
+    return {"median": statistics.median(runs), "min": runs[0],
+            "max": runs[-1]}
+
+
+def graph_ms(fn, launches: int = 20) -> dict:
+    """Device time per call of ``fn`` with the host out of the way:
+    ``launches`` calls captured in one CUDA graph, the graph replayed
+    (``cuda_ms_stats``), divided by ``launches``. Where a call's host work
+    outlasts its kernels (the serving shapes), ``cuda_ms`` times the host
+    and this times the device."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    stats = cuda_ms_stats(graph.replay, 5)
+    return {k: v / launches for k, v in stats.items()}
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -226,7 +263,7 @@ def errs(got, want):
 
 def phase_setup():
     import torch
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     t0 = time.perf_counter()
     lib = build.build()
     build.load()
@@ -240,6 +277,12 @@ def phase_setup():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
+    bank = bank_kernel_resources(log)
+    for c in range(len(ops.BANK_CONFIGS)):     # the table is the library's
+        ops.bank_config_info(c)
+    emit({"phase": "setup", "bank_kernels": bank,
+          "bank_spill_bytes": sum(k["spill_stores"] + k["spill_loads"]
+                                  for k in bank)})
     emit({"phase": "setup", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": round(build_s, 3),
@@ -247,6 +290,35 @@ def phase_setup():
           "library": str(lib.relative_to(REPO)), "ptxas": ptxas})
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
     return smi[0] if smi else None
+
+
+def bank_kernel_resources(log: str):
+    """Registers, spill bytes and dynamic shared memory of every bank-kernel
+    instantiation, from the ``-Xptxas -v`` lines of ``build.log``."""
+    from repro_torch.kernels import ops
+    tiles = {(c.bm, c.bn): i for i, c in enumerate(ops.BANK_CONFIGS)}
+    out = []
+    for block in re.split(r"(?=ptxas info\s+: Compiling entry function)", log):
+        name = re.search(r"(bank_(?:mxv|qmm)_pop)_kernelIN9bank_gemm4TileILi"
+                         r"(\d+)ELi(\d+)E(?:Li\d+E)*EE(?:Li(\d+)E)?E", block)
+        if not name:
+            continue
+        kernel, bm, bn, width = name.groups()
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        cfg = tiles[(int(bm), int(bn))]
+        out.append({"kernel": kernel, "config": cfg, "tile": f"{bm}x{bn}",
+                    "copy_width": int(width) if width else None,
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_stores": int(spill.group(1)) if spill else 0,
+                    "spill_loads": int(spill.group(2)) if spill else 0,
+                    "smem_dynamic": ops.BANK_CONFIGS[cfg].smem_bytes})
+    # bank_mxv_pop at each of 3 copy widths, bank_qmm_pop once
+    if len(out) != 4 * len(ops.BANK_CONFIGS):
+        raise AssertionError(f"found {len(out)} bank-kernel instantiations "
+                             f"in build.log")
+    return out
 
 
 def check_scan(shape, path, dev):
@@ -307,6 +379,31 @@ def check_banks(layer, shape, path, dev):
     return out
 
 
+def check_bank_configs(layer, shape, dev):
+    """Every tile configuration forced on ``shape``: both bank kernels
+    bitwise equal across configurations, and to the wrapper's choice."""
+    import torch
+    from repro_torch.kernels import ops
+    x, bank, packed, idx = bank_inputs(shape, 3, dev)
+    n = len(ops.BANK_CONFIGS)
+    outs = {name: [fn(x, b, idx, config=c) for c in range(n)]
+            for name, fn, b in (("bank_mxv_pop", ops.bank_mxv_pop, bank),
+                                ("bank_qmm_pop", ops.bank_qmm_pop, packed))}
+    chosen = {"bank_mxv_pop": ops.bank_mxv_pop(x, bank, idx),
+              "bank_qmm_pop": ops.bank_qmm_pop(x, packed, idx)}
+    torch.cuda.synchronize()
+    equal = {name: all(torch.equal(o[c], o[0]) for c in range(n))
+             and torch.equal(chosen[name], o[0]) for name, o in outs.items()}
+    emit({"phase": "kernels", "layer": layer, "shape": shape,
+          "configs": n, "chosen_config": {
+              k: ops.bank_config(shape[0], shape[1], shape[3], kernel=k)
+              for k in chosen},
+          "bitwise_equal_across_configs": equal})
+    if not all(equal.values()):
+        raise AssertionError(f"bank configurations disagree at {shape}: "
+                             f"{equal}")
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version; returns max abs errors at the
     search path's shapes (scan: SCAN_SHAPE; MxVs: FC) and ``quant_matmul``
@@ -323,6 +420,7 @@ def phase_kernels(dev):
                             "ragged" if name == "ragged" else "search", dev)
         if name == "FC":
             out.update(errs_)
+            check_bank_configs(name, shape, dev)
     for name, (_, _, m, N) in MXV_SHAPES.items():
         if name != "ragged":      # the serving step: a full chunk, a tail
             for lanes, rows in ((SERVE_LANES, SERVE_CHUNK), (4, SERVE_TAIL)):
@@ -838,6 +936,71 @@ def phase_front_serve(dev, target):
     return counts
 
 
+def time_banks(dev):
+    """Both bank kernels at the search shapes (P = 16 lanes of 1536 rows)
+    and the serving shapes (8 lanes of a 16-frame chunk, 4 lanes of a 7-frame
+    tail), beside ``torch.bmm`` with the ``index_select`` gather (the
+    same function as ``bank_mxv_pop``), ``bmm`` on a gathered copy made
+    beforehand, and dequantize + ``bmm`` (``bank_qmm_pop``'s plain
+    version): the median and range of 5 repeats each; at the search shapes
+    also both kernels with each tile configuration forced (``by_config``),
+    at the serving shapes their device time in a CUDA graph (``*_graph``).
+    Returns the rows by shape name."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    shapes = {name: shp for name, shp in MXV_SHAPES.items()
+              if name != "ragged"}
+    for name, (_, _, m, N) in MXV_SHAPES.items():
+        if name != "ragged":
+            shapes[f"serve_{name}"] = (SERVE_LANES, SERVE_CHUNK, m, N)
+            shapes[f"tail_{name}"] = (4, SERVE_TAIL, m, N)
+    rows = {}
+    for name, shp in shapes.items():
+        x, bank, packed, idx = bank_inputs(shp, 4, dev)
+        gathered = bank.index_select(0, idx.long())
+        iters = 10 if shp[1] > SMALL_ROWS else 50
+        qb = sum(packed[k].numel() * packed[k].element_size()
+                 for k in ("q2", "q4", "q8", "q16")) / (shp[2] * shp[3] * 4)
+        bounds = {"bank_mxv_pop": bound_ms(*mxv_cost(shp, idx)),
+                  "bank_qmm_pop": bound_ms(*mxv_cost(
+                      shp, idx, container_bytes_per_weight=qb))}
+        row = {"phase": "timing", "layer": name, "shape": shp,
+               "config": {k: ops.bank_config(shp[0], shp[1], shp[3],
+                                             kernel=k)
+                          for k in ("bank_mxv_pop", "bank_qmm_pop")},
+               "bound_ms": {k: b for k, (b, _) in bounds.items()},
+               "bound_by": {k: by for k, (_, by) in bounds.items()}}
+        for key, fn in (
+                ("bank_mxv_pop", lambda: ops.bank_mxv_pop(x, bank, idx)),
+                ("bank_qmm_pop", lambda: ops.bank_qmm_pop(x, packed, idx)),
+                ("bmm_index_select",
+                 lambda: torch.bmm(x, bank.index_select(0, idx.long()))),
+                ("bmm_gathered", lambda: torch.bmm(x, gathered)),
+                ("dequant_bmm",
+                 lambda: ref.bank_qmm_pop_ref(x, packed, idx))):
+            row[key] = cuda_ms_stats(fn, iters)
+            if shp[1] <= SMALL_ROWS and key != "dequant_bmm":
+                row[key + "_graph"] = graph_ms(fn)
+        if shp[1] > SMALL_ROWS:      # every configuration, forced
+            row["by_config"] = {
+                name: [cuda_ms_stats(lambda: fn(x, b, idx, config=c),
+                                     iters)["median"]
+                       for c in range(len(ops.BANK_CONFIGS))]
+                for name, fn, b in (("bank_mxv_pop", ops.bank_mxv_pop, bank),
+                                    ("bank_qmm_pop", ops.bank_qmm_pop,
+                                     packed))}
+        mxv = row["bank_mxv_pop"]["median"]
+        row["mxv_share_of_bound"] = row["bound_ms"]["bank_mxv_pop"] / mxv
+        row["mxv_vs_bmm"] = mxv / row["bmm_index_select"]["median"]
+        row["qmm_vs_mxv"] = row["bank_qmm_pop"]["median"] / mxv
+        row["qmm_vs_dequant_bmm"] = (row["bank_qmm_pop"]["median"]
+                                     / row["dequant_bmm"]["median"])
+        emit(row)
+        rows[name] = row
+        del x, bank, packed, gathered
+    return rows
+
+
 def phase_timing(dev, max_err, counts, smi_line, target):
     import torch
     from repro_torch.kernels import ops, ref
@@ -856,54 +1019,16 @@ def phase_timing(dev, max_err, counts, smi_line, target):
         kernels.append(dict(name=name, shape=shape, ms=cuda_ms(fn, 20),
                             plain_ms=cuda_ms(plain, 3, 1), bound_ms=b,
                             bound_by=by, library_ms=None))
-    x, bank, packed, idx = bank_inputs(MXV_SHAPES["FC"], 4, dev)
-    shape = MXV_SHAPES["FC"]
-    nb, fl = mxv_cost(shape, idx)
-    b, by = bound_ms(nb, fl)
-    kernels.append(dict(
-        name="bank_mxv_pop", shape=shape,
-        ms=cuda_ms(lambda: ops.bank_mxv_pop(x, bank, idx), 10),
-        plain_ms=cuda_ms(lambda: ref.bank_mxv_pop_ref(x, bank, idx), 10),
-        bound_ms=b, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.bmm(x, bank.index_select(0, idx)),
-                           10)))
-    qbytes = (sum(packed[k].numel() * packed[k].element_size()
-                  for k in ("q2", "q4", "q8", "q16"))
-              / (shape[2] * shape[3]))            # all four rows are selected
-    nb, fl = mxv_cost(shape, idx, container_bytes_per_weight=qbytes / 4)
-    b, by = bound_ms(nb, fl)
-    kernels.append(dict(
-        name="bank_qmm_pop", shape=shape,
-        ms=cuda_ms(lambda: ops.bank_qmm_pop(x, packed, idx), 10),
-        plain_ms=cuda_ms(lambda: ref.bank_qmm_pop_ref(x, packed, idx), 10),
-        bound_ms=b, bound_by=by, library_ms=None))
-    for name, shp in (("L", MXV_SHAPES["L"]), ("Pr", MXV_SHAPES["Pr"]),
-                      ("L0", MXV_SHAPES["L0"])):
-        x, bank, packed, idx = bank_inputs(shp, 5, dev)
-        row = {"phase": "timing", "layer": name, "shape": shp}
-        if name != "L0":
-            row["bank_mxv_pop_ms"] = cuda_ms(
-                lambda: ops.bank_mxv_pop(x, bank, idx), 10)
-            row["bmm_ms"] = cuda_ms(
-                lambda: torch.bmm(x, bank.index_select(0, idx)), 10)
-        row["bank_qmm_pop_ms"] = cuda_ms(
-            lambda: ops.bank_qmm_pop(x, packed, idx), 10)
-        emit(row)
-    # the serving step's shapes: P lanes of one 16-frame chunk each
-    for name, (_, _, m, N) in MXV_SHAPES.items():
-        if name == "ragged":
-            continue
-        shp = (SERVE_LANES, SERVE_CHUNK, m, N)
-        x, bank, packed, idx = bank_inputs(shp, 5, dev)
-        qb = sum(packed[k].numel() * packed[k].element_size()
-                 for k in ("q2", "q4", "q8", "q16")) / (m * N * 4)
-        b, by = bound_ms(*mxv_cost(shp, idx, container_bytes_per_weight=qb))
-        emit({"phase": "timing", "serving_shape": name, "shape": shp,
-              "bank_qmm_pop_ms": cuda_ms(
-                  lambda: ops.bank_qmm_pop(x, packed, idx), 20),
-              "plain_ms": cuda_ms(
-                  lambda: ref.bank_qmm_pop_ref(x, packed, idx), 10),
-              "bound_ms": b, "bound_by": by})
+    bank_rows = time_banks(dev)
+    for name in ("bank_mxv_pop", "bank_qmm_pop"):
+        r = bank_rows["FC"]
+        kernels.append(dict(
+            name=name, shape=r["shape"], ms=r[name]["median"],
+            plain_ms=r["dequant_bmm" if name == "bank_qmm_pop"
+                       else "bmm_index_select"]["median"],
+            bound_ms=r["bound_ms"][name], bound_by=r["bound_by"][name],
+            library_ms=(r["bmm_index_select"]["median"]
+                        if name == "bank_mxv_pop" else None)))
     shp = (SERVE_LANES, 1, SERVE_CHUNK, SCAN_SHAPE[3])
     streams, vecs = scan_inputs(shp, 3, dev)
     b, by = bound_ms(*scan_cost(shp))

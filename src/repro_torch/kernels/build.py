@@ -37,9 +37,10 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "repro_sru_scan_pop": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _P],
-    "repro_bank_mxv_pop": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_bank_mxv_pop": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_bank_qmm_pop": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
-                           _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _I, _P],
+    "repro_bank_config_info": [_I, _P],
     "repro_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 

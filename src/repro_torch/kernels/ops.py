@@ -17,7 +17,9 @@ Each wrapper counts its kernel launches in a plain integer attribute,
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+import math
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -40,14 +42,18 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _check(cond: bool, what: str) -> None:
+def _check(cond: bool, what) -> None:
+    """Raise ``ValueError(what)`` unless ``cond``; ``what`` may be a
+    callable that builds the message, so that the serving step's per-call
+    checks format no strings when they pass."""
     if not cond:
-        raise ValueError(what)
+        raise ValueError(what() if callable(what) else what)
 
 
 def _check_cuda(name: str, dev: torch.device, **tensors) -> None:
     for key, t in tensors.items():
-        _check(t.device == dev, f"{name}: {key} on {t.device}, expected {dev}")
+        if t.device != dev:
+            raise ValueError(f"{name}: {key} on {t.device}, expected {dev}")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -127,23 +133,128 @@ def sru_scan(uw, uf, ur, v_f, v_r, b_f, b_r):
     return h[0], r[0], c[0]
 
 
+class BankConfig(NamedTuple):
+    """One block-tile configuration of ``csrc/bank_gemm.cuh``: a BM x BN
+    output tile, K in steps of BK through a ring of ``stages`` shared-memory
+    stages, TM x 8 outputs per thread, and the blocks per SM its launch
+    bounds promise."""
+    bm: int
+    bn: int
+    bk: int
+    tm: int
+    stages: int
+    threads: int
+    min_blocks: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one ``bank_mxv_pop`` block: the ring of
+        k-major x tiles (rows of BM + 4 floats) and of f32 B tiles.
+        ``bank_qmm_pop`` adds BN floats of column scales."""
+        return 4 * self.stages * (self.bk * (self.bm + 4) + self.bk * self.bn)
+
+
+# In bank_gemm.cuh's order (Config0, Config1, Config2)
+BANK_CONFIGS = (
+    BankConfig(128, 128, 16, 16, 4, 128, 2),   # the search: 1536 rows/lane
+    BankConfig(128, 64, 16, 8, 3, 128, 3),     # the same, smaller tiles
+    BankConfig(16, 64, 16, 2, 4, 64, 8),       # the serving step: 16 rows
+)
+SMEM_PER_BLOCK = 232448          # H100: 227 KB of dynamic shared memory
+SMALL_M = 32                     # rows per lane up to which 16-row tiles win
+# The 128 x 64 tile's cost per output against the 128 x 128 tile's, fitted
+# to chip_smoke.py's timings of every configuration at the search shapes
+# (PERF.md): for bank_mxv_pop it reads 1.0 byte of shared memory per FMA
+# against 0.75; bank_qmm_pop's per-tile loads and dequantization hide
+# better behind its three blocks an SM than behind two.
+NARROW_COST = {"bank_mxv_pop": 1.04, "bank_qmm_pop": 0.92}
+
+
+def bank_config(P: int, M: int, N: int, sms: int = 132,
+                kernel: str = "bank_mxv_pop") -> int:
+    """The bank GEMM configuration for ``kernel`` on P lanes of an (M, m) x
+    (m, N) product on a card with ``sms`` SMs: the 16-row tile where a lane
+    has at most ``SMALL_M`` rows (the serving step), else the 128-row tile
+    whose grid costs the least: waves of ``sms * min_blocks`` blocks, each
+    wave costing an SM ``min_blocks`` tiles' area, the 128 x 64 tile's area
+    weighted by ``NARROW_COST[kernel]`` (Pr, N = 256 at P = 16, fills 2
+    waves of 128 x 64 tiles better than 1.45 of 128 x 128). A tie goes to
+    the larger tile."""
+    if M <= SMALL_M:
+        return 2
+
+    def cost(i):
+        c = BANK_CONFIGS[i]
+        blocks = P * math.ceil(M / c.bm) * math.ceil(N / c.bn)
+        waves = math.ceil(blocks / (sms * c.min_blocks))
+        return (waves * c.min_blocks * c.bm * c.bn
+                * (NARROW_COST[kernel] if i == 1 else 1.0))
+
+    return 1 if cost(1) < cost(0) else 0
+
+
+def copy_width(*quantities: int, widths=(16, 8, 4)) -> int:
+    """The widest copy in ``widths`` (powers of two, widest first, in bytes)
+    that divides every quantity: row strides in bytes and base addresses,
+    so that no vector crosses a row end or starts misaligned."""
+    bits = 0
+    for q in quantities:
+        bits |= q
+    common = bits & -bits if bits else widths[0]   # largest power of 2
+    for w in widths:
+        if w <= common:
+            return w
+    raise ValueError(f"no copy width of {widths} divides {quantities}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bank_config_for(name, dev, P, M, N, config):
+    if config is None:
+        return bank_config(P, M, N, _sm_count(dev.index), name)
+    _check(0 <= config < len(BANK_CONFIGS),
+           f"{name}: config {config} not in 0..{len(BANK_CONFIGS) - 1}")
+    return config
+
+
+def bank_config_info(config: int) -> BankConfig:
+    """Configuration ``config`` as the built library holds it, read back to
+    hold ``BANK_CONFIGS`` to the CUDA source; raises if the library's
+    shared-memory size is not ``BankConfig.smem_bytes``."""
+    out = (ctypes.c_int * 8)()
+    err = build.load().repro_bank_config_info(config, ctypes.cast(
+        out, ctypes.c_void_p))
+    _raise_on(err, "bank_config_info")
+    cfg = BankConfig(*out[:7])
+    _check(cfg.smem_bytes == out[7], f"config {config}: {out[7]} bytes of "
+           f"shared memory in the library, {cfg.smem_bytes} by BankConfig")
+    return cfg
+
+
 def _check_mxv_x(name, x, idx, m):
     _check(x.dtype == torch.float32 and x.ndim == 3 and x.is_contiguous(),
-           f"{name}: x must be contiguous (P, M, m) f32, got "
+           lambda: f"{name}: x must be contiguous (P, M, m) f32, got "
            f"{x.dtype} {tuple(x.shape)}")
-    _check(x.shape[2] == m, f"{name}: x width {x.shape[2]} != bank rows {m}")
+    _check(x.shape[2] == m,
+           lambda: f"{name}: x width {x.shape[2]} != bank rows {m}")
     _check(idx.dtype == torch.int32 and tuple(idx.shape) == (x.shape[0],)
            and idx.is_contiguous(),
-           f"{name}: idx must be contiguous ({x.shape[0]},) int32, got "
-           f"{idx.dtype} {tuple(idx.shape)}")
+           lambda: f"{name}: idx must be contiguous ({x.shape[0]},) int32, "
+           f"got {idx.dtype} {tuple(idx.shape)}")
 
 
-def bank_mxv_pop(x, bank, idx):
+def bank_mxv_pop(x, bank, idx, config: Optional[int] = None):
     """Population MxV against a quantized-weight bank: x (P, M, m) f32,
     bank (K, m, N) f32 (the K menu-entry fake-quantizations of one weight),
     idx (P,) int32 menu indices. Returns (P, M, N), ``out[p] = x[p] @
     bank[idx[p]]``. The kernel reads the selected row in place; no (P, m, N)
-    gathered copy exists. A lane whose index is out of range gets NaN."""
+    gathered copy exists. A lane whose index is out of range gets NaN.
+    ``config`` forces a tile configuration (``BANK_CONFIGS``) on the card;
+    by default ``bank_config`` picks one. Every configuration gives bitwise
+    the same output."""
     if x.device.type == "cpu":
         return ref.bank_mxv_pop_ref(x, bank, idx)
     name = "bank_mxv_pop"
@@ -151,7 +262,7 @@ def bank_mxv_pop(x, bank, idx):
     _check_cuda(name, dev, bank=bank, idx=idx)
     _check(bank.dtype == torch.float32 and bank.ndim == 3
            and bank.is_contiguous(),
-           f"{name}: bank must be contiguous (K, m, N) f32, got "
+           lambda: f"{name}: bank must be contiguous (K, m, N) f32, got "
            f"{bank.dtype} {tuple(bank.shape)}")
     K, m, N = bank.shape
     _check_mxv_x(name, x, idx, m)
@@ -159,22 +270,25 @@ def bank_mxv_pop(x, bank, idx):
     out = torch.empty((P, M, N), dtype=torch.float32, device=dev)
     if out.numel() == 0 or m == 0:
         return out.zero_()
+    cfg = _bank_config_for(name, dev, P, M, N, config)
+    width = copy_width(4 * N, bank.data_ptr())
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.repro_bank_mxv_pop(_ptr(x), _ptr(bank), _ptr(idx), _ptr(out),
-                                     P, M, m, N, K, _stream(dev))
+                                     P, M, m, N, K, cfg, width, _stream(dev))
     _raise_on(err, name)
     bank_mxv_pop.launches += 1
     return out
 
 
-def bank_qmm_pop(x, packed, idx):
+def bank_qmm_pop(x, packed, idx, config: Optional[int] = None):
     """Population MxV against a PACKED bank
     (``quantization.build_packed_weight_bank`` dict for a (m, N) weight):
     x (P, M, m) f32, idx (P,) int32 menu indices in ``SUPPORTED_BITS``
     order. Returns (P, M, N), ``out[p] = x[p] @ dequant(packed)[idx[p]]``.
     The kernel reads only the selected container and dequantizes it on the
-    way to shared memory; the (4, 1) scale column is read as it is stored."""
+    way to shared memory; the (4, 1) scale column is read as it is stored.
+    ``config`` as for ``bank_mxv_pop``."""
     if x.device.type == "cpu":
         return ref.bank_qmm_pop_ref(x, packed, idx)
     name = "bank_qmm_pop"
@@ -185,28 +299,34 @@ def bank_qmm_pop(x, packed, idx):
     rows = {"q2": (m + 3) // 4, "q4": (m + 1) // 2, "q8": m, "q16": m}
     for key, dtype in _CONTAINERS:
         t = packed[key]
-        _check_cuda(name, dev, **{key: t})
-        _check(t.dtype == dtype and tuple(t.shape) == (rows[key], N)
-               and t.is_contiguous(),
-               f"{name}: {key} must be contiguous ({rows[key]}, {N}) {dtype},"
-               f" got {t.dtype} {tuple(t.shape)}")
+        if not (t.device == dev and t.dtype == dtype
+                and t.shape == (rows[key], N) and t.is_contiguous()):
+            _check_cuda(name, dev, **{key: t})
+            raise ValueError(f"{name}: {key} must be contiguous "
+                             f"({rows[key]}, {N}) {dtype}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
     scale = packed["scale"]
     _check_cuda(name, dev, scale=scale)
     _check(scale.dtype == torch.float32 and scale.ndim == 2
            and scale.shape[0] == 4 and scale.shape[1] in (1, N)
            and scale.is_contiguous(),
-           f"{name}: scale must be contiguous (4, 1) or (4, {N}) f32, got "
-           f"{scale.dtype} {tuple(scale.shape)}")
+           lambda: f"{name}: scale must be contiguous (4, 1) or (4, {N}) f32,"
+           f" got {scale.dtype} {tuple(scale.shape)}")
     P, M, _ = x.shape
     out = torch.empty((P, M, N), dtype=torch.float32, device=dev)
     if out.numel() == 0 or m == 0:
         return out.zero_()
+    cfg = _bank_config_for(name, dev, P, M, N, config)
+    width8 = copy_width(N, *(packed[k].data_ptr() for k in ("q2", "q4", "q8")),
+                        widths=(16, 8, 4, 2, 1))
+    width16 = copy_width(2 * N, packed["q16"].data_ptr(),
+                         widths=(16, 8, 4, 2))
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.repro_bank_qmm_pop(
             _ptr(x), _ptr(packed["q2"]), _ptr(packed["q4"]), _ptr(q8),
             _ptr(packed["q16"]), _ptr(scale), scale.shape[1], _ptr(idx),
-            _ptr(out), P, M, m, N, _stream(dev))
+            _ptr(out), P, M, m, N, cfg, width8, width16, _stream(dev))
     _raise_on(err, name)
     bank_qmm_pop.launches += 1
     return out

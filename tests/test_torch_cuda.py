@@ -59,8 +59,16 @@ def test_sru_scan_kernels_match_plain(dev, shape):
         assert torch.equal(g, w[1])
 
 
-@pytest.mark.parametrize("P,M,m,N", [(5, 70, 23, 130), (3, 64, 256, 64),
-                                     (2, 1, 1, 1)])
+# Shapes crossing each configuration's tile edges (16 and 128 rows, 64 and
+# 128 columns, 16-deep K tiles: m = 17, 18, 23, 1100) and each copy width:
+# N = 1650 (f32 rows 8 bytes, int8 rows 2), N = 255 (f32 4, int8 1, int16
+# 2), N = 66 (f32 8, int8 2, int16 4), N = 1904 and 256 (16).
+BANK_SHAPES = [(5, 70, 23, 130), (3, 64, 256, 64), (2, 1, 1, 1),
+               (2, 127, 17, 1650), (3, 129, 1100, 255), (8, 16, 1100, 1904),
+               (4, 7, 23, 1650), (2, 33, 18, 66), (3, 200, 40, 256)]
+
+
+@pytest.mark.parametrize("P,M,m,N", BANK_SHAPES)
 def test_bank_kernels_match_plain(dev, P, M, m, N):
     bank, packed = _banks(m + N, m, N, dev)
     x = _rand(P, (P, M, m)).to(dev)
@@ -74,6 +82,68 @@ def test_bank_kernels_match_plain(dev, P, M, m, N):
                                rtol=1e-4, atol=1e-3)
     assert torch.equal(qmm, ops.bank_mxv_pop(x, Q.dequant_packed_bank(packed),
                                              idx))
+
+
+@pytest.mark.parametrize("P,M,m,N", [(2, 127, 17, 1650), (3, 129, 1100, 255),
+                                     (8, 16, 1100, 1904), (4, 7, 23, 1650),
+                                     (16, 130, 64, 200)])
+def test_every_bank_config_gives_the_same_bits(dev, P, M, m, N):
+    """Each tile configuration, forced, gives bitwise the output of every
+    other: the per-element sum order does not depend on the tile."""
+    bank, packed = _banks(m * N, m, N, dev)
+    x = _rand(M + P, (P, M, m)).to(dev)
+    idx = torch.tensor([(p * 3) % 4 for p in range(P)], dtype=torch.int32,
+                       device=dev)
+    mxv = [ops.bank_mxv_pop(x, bank, idx, config=c)
+           for c in range(len(ops.BANK_CONFIGS))]
+    qmm = [ops.bank_qmm_pop(x, packed, idx, config=c)
+           for c in range(len(ops.BANK_CONFIGS))]
+    deq = Q.dequant_packed_bank(packed)
+    for c in range(len(ops.BANK_CONFIGS)):
+        assert torch.equal(mxv[c], mxv[0]), c
+        assert torch.equal(qmm[c], qmm[0]), c
+        assert torch.equal(qmm[c], ops.bank_mxv_pop(x, deq, idx, config=c)), c
+    assert ops.bank_config(P, M, N) in range(len(ops.BANK_CONFIGS))
+    assert torch.equal(ops.bank_mxv_pop(x, bank, idx), mxv[0])
+
+
+def test_bank_kernels_take_unaligned_base_pointers(dev):
+    """x, the bank and the containers starting 4, 4 and 1 bytes past an
+    alignment boundary: the wrappers narrow their copy widths, nothing is
+    padded, and the result is bitwise the aligned one's."""
+    P, M, m, N = 3, 40, 48, 1904
+    bank, packed = _banks(11, m, N, dev)
+    x = _rand(12, (P, M, m)).to(dev)
+    idx = torch.tensor([3, 1, 0], dtype=torch.int32, device=dev)
+
+    def moved(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    x_off, bank_off = moved(x), moved(bank)
+    packed_off = {key: moved(t) for key, t in packed.items()}
+    assert ops.copy_width(4 * N, bank.data_ptr()) == 16
+    assert ops.copy_width(4 * N, bank_off.data_ptr()) == 4
+    assert ops.copy_width(N, packed_off["q8"].data_ptr(),
+                          widths=(16, 8, 4, 2, 1)) == 1
+    for c in range(len(ops.BANK_CONFIGS)):
+        want = ops.bank_mxv_pop(x, bank, idx, config=c)
+        assert torch.equal(ops.bank_mxv_pop(x_off, bank_off, idx, config=c),
+                           want)
+        assert torch.equal(ops.bank_qmm_pop(x_off, packed_off, idx, config=c),
+                           ops.bank_qmm_pop(x, packed, idx, config=c))
+
+
+def test_bank_config_table_matches_the_library(dev):
+    for c, cfg in enumerate(ops.BANK_CONFIGS):
+        assert ops.bank_config_info(c) == cfg
+    x = torch.zeros(1, 2, 3, device=dev)
+    with pytest.raises(ValueError, match="config"):
+        ops.bank_mxv_pop(x, torch.zeros(4, 3, 5, device=dev),
+                         torch.zeros(1, dtype=torch.int32, device=dev),
+                         config=len(ops.BANK_CONFIGS))
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
