@@ -9,15 +9,19 @@ Phases, each printing JSON lines:
    per source, all at once, then one link; each command's seconds and
    their sum, what one source after another would take, are printed),
    print every bank-kernel instantiation's registers, spill bytes and
-   shared memory (from ``build.log``'s ptxas lines), the card and its power
-   limit;
+   shared memory and every scan and ``quant_matmul`` instantiation's
+   registers and spill bytes (from ``build.log``'s ptxas lines), the blocks
+   an SM holds of ``quant_matmul``'s launches (the runtime's occupancy
+   calculator; the LM head's grid must be one resident wave), the card and
+   its power limit;
 2. kernels: each kernel against its plain PyTorch version on seeded inputs
    at the search path's full-width shapes, at the serving path's (8 lanes
    of a 16-frame chunk, and 4 lanes of a 7-frame ragged tail) and at a
    ragged shape (scan: 1e-5; MxVs and ``quant_matmul``: rtol 1e-4 / atol
    1e-3; the packed MxV bitwise equal to the f32 MxV on the dequantized
    bank); at FC every bank-GEMM tile configuration, forced, bitwise equal
-   to every other;
+   to every other; at every scan shape ``sru_scan`` bitwise equal to lane
+   0 of ``sru_scan_pop``;
 3. search path: the inference-only MOHAQ search on the paper's model
    (``configs/sru_timit.py``, full width, seeded random weights, synthetic
    speech): calibrate, build banks, ``SearchSession(target, "silago",
@@ -53,9 +57,16 @@ Phases, each printing JSON lines:
    serving shapes; for the bank kernels the median and range of 5 repeats
    beside ``torch.bmm`` with and without its ``index_select`` gather and
    dequantize + ``bmm``, and at the serving shapes also device times from a
-   CUDA graph; the scalar forward with its MxVs on ``bank_mxv_pop`` and on
+   CUDA graph; for the scans (search, P = 1, serving and scalar-chunk
+   shapes) and ``quant_matmul`` (int8, int4) the device time from a CUDA
+   graph (``graph_ms``, median and range of 5) beside the event-timed call
+   (``cuda_ms_stats``, which a short kernel's host work can outlast); the
+   scalar forward with its MxVs on ``bank_mxv_pop`` and on
    ``torch.matmul``, one generation's evaluation per lane, and peak device
-   memory.
+   memory. In the
+   ``kernels`` line the scans' and ``quant_matmul``'s ``ms`` are graph
+   device times and ``host_ms`` the event-timed call (``ms_from`` says
+   which).
 
 Each path (3, 4, 5) runs with the launch counts set to 0 just before it and
 read just after; the ``kernels`` line's ``launches`` add up those reads.
@@ -91,6 +102,11 @@ SMALL_ROWS = 32                             # timing: more calls per run below
 SCAN_SHAPE = (16, 32, 48, 550)              # (P, B, T, n)
 SERVE_SCAN_SHAPES = ((SERVE_LANES, 1, SERVE_CHUNK, 550),
                      (4, 1, SERVE_TAIL, 550))
+# timed scans: (P, B, T, n) and the wrapper; P = 1 runs ``sru_scan``
+TIMED_SCANS = {"search": ("sru_scan_pop", SCAN_SHAPE),
+               "scalar": ("sru_scan", (1,) + SCAN_SHAPE[1:]),
+               "serving": ("sru_scan_pop", SERVE_SCAN_SHAPES[0]),
+               "scalar_chunk": ("sru_scan", (1, 1, SERVE_CHUNK, 550))}
 MXV_SHAPES = {                              # name: (P, M, m, N)
     "L": (16, 1536, 256, 1650),
     "Pr": (16, 1536, 1100, 256),
@@ -283,6 +299,8 @@ def phase_setup():
     emit({"phase": "setup", "bank_kernels": bank,
           "bank_spill_bytes": sum(k["spill_stores"] + k["spill_loads"]
                                   for k in bank)})
+    emit({"phase": "setup", "scan_qmm_kernels": scan_qmm_resources(log),
+          "qmm_launch": qmm_occupancy()})
     emit({"phase": "setup", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": round(build_s, 3),
@@ -321,17 +339,63 @@ def bank_kernel_resources(log: str):
     return out
 
 
+def scan_qmm_resources(log: str):
+    """Registers and spill bytes of every scan and ``quant_matmul``
+    instantiation, from the ``-Xptxas -v`` lines of ``build.log``."""
+    out = []
+    for block in re.split(r"(?=ptxas info\s+: Compiling entry function)", log):
+        scan = re.search(r"sru_scan_pop_kernel", block)
+        qmm = re.search(r"quant_matmul_kernelILi(\d)ELi(\d)ELb(\d)E", block)
+        if not (scan or qmm):
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        row = ({"kernel": "sru_scan_pop"} if scan
+               else {"kernel": "quant_matmul", "bits": int(qmm.group(1)),
+                     "mt": int(qmm.group(2)), "vec": qmm.group(3) == "1"})
+        out.append({**row, "registers": int(regs.group(1)) if regs else None,
+                    "spill_bytes": (int(spill.group(1)) + int(spill.group(2))
+                                    if spill else 0)})
+    want = 1 + 2 * 3 * 2      # the scan; quant_matmul: 2 row tiles x 3 bits x vec
+    if len(out) != want:
+        raise AssertionError(f"found {len(out)} scan and quant_matmul "
+                             f"instantiations in build.log, expected {want}")
+    return out
+
+
+def qmm_occupancy():
+    """The blocks an SM holds of each ``quant_matmul`` launch (the runtime's
+    occupancy calculator, for 4 and 8 rows of x a block); raises unless
+    the LM head's grid is one resident wave."""
+    import torch
+    from repro_torch.kernels import ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    M, _, N = QMM_SHAPES["head"]
+    rows = []
+    for m in (M, 8):
+        for bits in (8, 4, 2):
+            occ = ops.quant_matmul_occupancy(m, N, bits)
+            rows.append({"M": m, "N": N, "bits": bits, **occ,
+                         "slots": sms * occ["blocks_per_sm"]})
+            if m == M and occ["blocks"] > sms * occ["blocks_per_sm"]:
+                raise AssertionError(f"the LM head's quant_matmul grid is "
+                                     f"not one resident wave: {rows[-1]}")
+    return rows
+
+
 def check_scan(shape, path, dev):
     """``sru_scan_pop`` and ``sru_scan`` (lane 0's streams) against their
-    plain versions at ``shape``; returns their max abs errors."""
+    plain versions at ``shape``, and ``sru_scan`` bitwise equal to lane 0
+    of ``sru_scan_pop``; returns their max abs errors."""
     import torch
     from repro_torch.kernels import ops, ref
-    out = {}
+    out, results = {}, {}
     streams, vecs = scan_inputs(shape, 1, dev)
     single = [s[0] for s in streams]
     for name, args, shp in (("sru_scan_pop", streams, shape),
                             ("sru_scan", single, shape[1:])):
-        got = getattr(ops, name)(*args, *vecs)
+        got = results[name] = getattr(ops, name)(*args, *vecs)
         want = getattr(ref, name + "_ref")(*args, *vecs)
         torch.cuda.synchronize()
         for g, w in zip(got, want):
@@ -341,6 +405,9 @@ def check_scan(shape, path, dev):
               "shape": shp, "max_abs_err": out[name],
               "max_rel_err": max(errs(g, w)[1] for g, w in zip(got, want)),
               "tol": "rtol 1e-5, atol 1e-5"})
+    if not all(torch.equal(g, w[0]) for g, w in zip(
+            results["sru_scan"], results["sru_scan_pop"])):
+        raise AssertionError(f"sru_scan != lane 0 of sru_scan_pop at {shape}")
     return out
 
 
@@ -1001,43 +1068,49 @@ def time_banks(dev):
     return rows
 
 
+def time_scans(dev):
+    """The scans at ``TIMED_SCANS``' shapes: device time from a CUDA graph
+    (the ``ms`` of the ``kernels`` line), the event-timed call beside it
+    (``host_ms``: back-to-back calls, whose host work can outlast a short
+    kernel), the plain version and the bound. Returns the ``kernels`` rows
+    of the search (``sru_scan_pop``) and P = 1 (``sru_scan``) shapes."""
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for label, (name, shape) in TIMED_SCANS.items():
+        streams, vecs = scan_inputs(shape, 3, dev)
+        args = streams if name == "sru_scan_pop" else [s[0] for s in streams]
+        fn, plain = getattr(ops, name), getattr(ref, name + "_ref")
+        b, by = bound_ms(*scan_cost(shape))
+        graph = graph_ms(lambda: fn(*args, *vecs))
+        host = cuda_ms_stats(lambda: fn(*args, *vecs), 20)
+        row = dict(name=name, shape=shape if name == "sru_scan_pop"
+                   else shape[1:], ms=graph["median"], host_ms=host["median"],
+                   ms_from="cuda_graph", plain_ms=cuda_ms(
+                       lambda: plain(*args, *vecs), 3, 1),
+                   bound_ms=b, bound_by=by, library_ms=None)
+        emit({"phase": "timing", "scan": label, **row, "graph_ms": graph,
+              "cuda_ms_stats": host, "share_of_bound": b / row["ms"]})
+        if label in ("search", "scalar"):
+            rows.append(row)
+    return rows
+
+
 def phase_timing(dev, max_err, counts, smi_line, target):
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models import sru
-    kernels = []
-    streams, vecs = scan_inputs(SCAN_SHAPE, 3, dev)
-    nbytes, flops = scan_cost(SCAN_SHAPE)
-    for name, fn, plain, shape, (nb, fl) in (
-            ("sru_scan_pop", lambda: ops.sru_scan_pop(*streams, *vecs),
-             lambda: ref.sru_scan_pop_ref(*streams, *vecs), SCAN_SHAPE,
-             (nbytes, flops)),
-            ("sru_scan", lambda: ops.sru_scan(*(s[0] for s in streams), *vecs),
-             lambda: ref.sru_scan_ref(*(s[0] for s in streams), *vecs),
-             SCAN_SHAPE[1:], scan_cost((1,) + SCAN_SHAPE[1:]))):
-        b, by = bound_ms(nb, fl)
-        kernels.append(dict(name=name, shape=shape, ms=cuda_ms(fn, 20),
-                            plain_ms=cuda_ms(plain, 3, 1), bound_ms=b,
-                            bound_by=by, library_ms=None))
+    kernels = time_scans(dev)
     bank_rows = time_banks(dev)
     for name in ("bank_mxv_pop", "bank_qmm_pop"):
         r = bank_rows["FC"]
         kernels.append(dict(
             name=name, shape=r["shape"], ms=r[name]["median"],
+            host_ms=r[name]["median"], ms_from="events",
             plain_ms=r["dequant_bmm" if name == "bank_qmm_pop"
                        else "bmm_index_select"]["median"],
             bound_ms=r["bound_ms"][name], bound_by=r["bound_by"][name],
             library_ms=(r["bmm_index_select"]["median"]
                         if name == "bank_mxv_pop" else None)))
-    shp = (SERVE_LANES, 1, SERVE_CHUNK, SCAN_SHAPE[3])
-    streams, vecs = scan_inputs(shp, 3, dev)
-    b, by = bound_ms(*scan_cost(shp))
-    emit({"phase": "timing", "serving_shape": "scan", "shape": shp,
-          "sru_scan_pop_ms": cuda_ms(
-              lambda: ops.sru_scan_pop(*streams, *vecs), 20),
-          "plain_ms": cuda_ms(lambda: ref.sru_scan_pop_ref(*streams, *vecs),
-                              5, 1),
-          "bound_ms": b, "bound_by": by})
     # the scalar forward(qp=) (test error, the served step's oracle) with
     # its MxVs on bank_mxv_pop (P = 1), as it runs, and on torch.matmul
     qp = target.qp_for({n: (8, 8) for n in target.layer_names})
@@ -1058,31 +1131,38 @@ def phase_timing(dev, max_err, counts, smi_line, target):
         w_deq = (ref.unpack_weights(packed, bits, shape[1]).to(torch.float32)
                  * scales[None, :])
         b, by = bound_ms(*qmm_cost(shape, packed))
+
+        def call():
+            ops.quant_matmul(x, packed, scales, bits)
+
+        graph, host = graph_ms(call), cuda_ms_stats(call, 20)
         row = dict(
-            name="quant_matmul", shape=shape, bits=bits,
-            ms=cuda_ms(lambda: ops.quant_matmul(x, packed, scales, bits), 20),
+            name="quant_matmul", shape=shape, bits=bits, ms=graph["median"],
+            host_ms=host["median"], ms_from="cuda_graph", graph_ms=graph,
+            cuda_ms_stats=host,
             plain_ms=cuda_ms(
                 lambda: ref.quant_matmul_ref(x, packed, scales, bits), 5),
             bound_ms=b, bound_by=by,
-            library_ms=cuda_ms(lambda: torch.matmul(x, w_deq), 20))
+            library_ms=graph_ms(lambda: torch.matmul(x, w_deq))["median"])
+        row["share_of_bound"] = b / row["ms"]
         del w_deq
+        emit({"phase": "timing", **row})
         if bits == 8:
             kernels.append(row)
             w_bf = torch.randn(shape[1:], device=dev, dtype=torch.bfloat16)
             x_bf = x.to(torch.bfloat16)
-            emit({"phase": "timing", "dense_bf16_head_ms": cuda_ms(
-                lambda: torch.matmul(x_bf, w_bf), 20), "shape": shape,
+            emit({"phase": "timing", "dense_bf16_head_ms": graph_ms(
+                lambda: torch.matmul(x_bf, w_bf))["median"], "shape": shape,
                 "bound_ms": bound_ms(2 * (shape[1] * shape[2] + shape[0] * (
                     shape[1] + shape[2])), 0)[0]})
             del w_bf
-        else:
-            emit({"phase": "timing", **row})
     out = []
     for k in kernels:
         src, replaces = KERNELS[k["name"]]
         out.append({"name": k["name"], "route": "cuda", "source": src,
                     "replaces": replaces, "launches": counts[k["name"]],
                     "max_abs_err": max_err[k["name"]], "ms": k["ms"],
+                    "host_ms": k["host_ms"], "ms_from": k["ms_from"],
                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                     "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                     "shape": list(k["shape"])})

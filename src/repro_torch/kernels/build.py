@@ -42,6 +42,7 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_bank_config_info": [_I, _P],
     "repro_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_quant_matmul_occupancy": [_I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -89,17 +89,20 @@ def _launch_scan(uw, uf, ur, v_f, v_r, b_f, b_r):
     _check_cuda(name, dev, uf=uf, ur=ur, v_f=v_f, v_r=v_r, b_f=b_f, b_r=b_r)
     for key, t in dict(uw=uw, uf=uf, ur=ur, v_f=v_f, v_r=v_r, b_f=b_f,
                        b_r=b_r).items():
-        _check(t.dtype == torch.float32, f"{name}: {key} is {t.dtype}")
-    lds = {_stream_ld(t, (P, B, T, n)) for t in (uw, uf, ur)}
-    _check(len(lds) == 1, f"{name}: streams have different row strides {lds}")
+        _check(t.dtype == torch.float32,
+               lambda: f"{name}: {key} is {t.dtype}")
     vecs = [t.contiguous() for t in (v_f, v_r, b_f, b_r)]
     for t in vecs:
-        _check(tuple(t.shape) == (n,), f"{name}: vector shape {tuple(t.shape)}")
+        _check(tuple(t.shape) == (n,),
+               lambda: f"{name}: vector shape {tuple(t.shape)}")
     h = torch.empty((P, B, T, n), dtype=torch.float32, device=dev)
     r = torch.empty_like(h)
     c_last = torch.empty((P, B, n), dtype=torch.float32, device=dev)
-    if h.numel() == 0:                       # T == 0 leaves c at its zero start
-        return h, r, c_last.zero_(), False
+    if h.numel() == 0:     # T == 0 leaves c at its zero start; an empty
+        return h, r, c_last.zero_(), False   # stream's strides mean nothing
+    lds = {_stream_ld(t, (P, B, T, n)) for t in (uw, uf, ur)}
+    _check(len(lds) == 1,
+           lambda: f"{name}: streams have different row strides {lds}")
     lib = build.load()
     with torch.cuda.device(dev):
         err = lib.repro_sru_scan_pop(
@@ -371,6 +374,17 @@ def _check_qmm(x, packed_w, scales, bits):
     _check(scales.dtype == torch.float32 and tuple(scales.shape) == (N,),
            f"{name}: scales must be ({N},) f32, got {scales.dtype} "
            f"{tuple(scales.shape)}")
+
+
+def quant_matmul_occupancy(M: int, N: int, bits: int) -> Dict[str, int]:
+    """The card's view of a ``quant_matmul`` launch on (M, K) x (K, N):
+    its ``blocks`` and the ``blocks_per_sm`` the runtime's occupancy
+    calculator lets share an SM (registers, shared memory and threads)."""
+    out = (ctypes.c_int * 2)()
+    err = build.load().repro_quant_matmul_occupancy(
+        M, N, bits, ctypes.cast(out, ctypes.c_void_p))
+    _raise_on(err, "quant_matmul_occupancy")
+    return {"blocks": out[0], "blocks_per_sm": out[1]}
 
 
 def quant_matmul(x, packed_w, scales, bits: int):

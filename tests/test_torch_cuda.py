@@ -59,6 +59,30 @@ def test_sru_scan_kernels_match_plain(dev, shape):
         assert torch.equal(g, w[1])
 
 
+@pytest.mark.parametrize("n", [13, 550, 1100])
+@pytest.mark.parametrize("T", [0, 1, 7, 48])
+def test_scan_at_ragged_steps_matches_plain_and_its_population_lane(dev, T,
+                                                                      n):
+    """Streams that are column thirds of one (P, B, T, 3n) array (ld = 3n),
+    at ragged T (0, 1, not a multiple of the prefetch depth): within 1e-5
+    of the plain version, and a P = 1 launch bitwise equal to lane 0 of the
+    P = 3 launch on the same streams."""
+    P, B = 3, 2
+    u = _rand(T * n + 1, (P, B, T, 3 * n)).to(dev)
+    streams = (u[..., :n], u[..., n:2 * n], u[..., 2 * n:])
+    vecs = [_rand(20 + i, (n,), 0.5).to(dev) for i in range(4)]
+    if T:
+        want = ref.sru_scan_pop_ref(*streams, *vecs)
+    else:                       # the plain version's stack needs a step
+        want = (u[..., :n], u[..., :n], torch.zeros(P, B, n, device=dev))
+    got = ops.sru_scan_pop(*streams, *vecs)
+    single = ops.sru_scan(*(s[0] for s in streams), *vecs)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    for g, w in zip(single, got):
+        assert torch.equal(g, w[0])
+
+
 # Shapes crossing each configuration's tile edges (16 and 128 rows, 64 and
 # 128 columns, 16-deep K tiles: m = 17, 18, 23, 1100) and each copy width:
 # N = 1650 (f32 rows 8 bytes, int8 rows 2), N = 255 (f32 4, int8 1, int16
@@ -146,22 +170,63 @@ def test_bank_config_table_matches_the_library(dev):
                          config=len(ops.BANK_CONFIGS))
 
 
-@pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("M,K,N", [(4, 2048, 1000), (3, 37, 130),
-                                   (9, 261, 255), (1, 1, 1)])
-def test_quant_matmul_matches_plain(dev, bits, M, K, N):
-    """Ragged M, N and K (K not filling the last packed byte, N not a
-    multiple of 4, M past one row tile) against the plain version."""
+# The ragged cases of earlier slices, and every M (one row tile, a ragged
+# and a full second one), K (one code, a ragged last packed byte and x
+# slice, the LM head's) and N (ragged inside and past one 128-column block)
+QMM_SHAPES = [(4, 2048, 1000), (3, 37, 130), (9, 261, 255), (1, 1, 1)] + [
+    (M, K, N) for M in (1, 4, 5, 8, 9) for K in (1, 33, 2047, 2048)
+    for N in (3, 130, 1001)]
+
+
+def _qmm_inputs(bits, M, K, N, dev):
     w = _rand(K + N + bits, (K, N))
     w[0, :3] = -8.0                             # the most negative codes
     packed, scales = ops.pack_for_kernel(w.to(dev), bits, 2.0)
-    x = _rand(M + bits, (M, K)).to(dev)
+    return _rand(M + bits, (M, K)).to(dev), packed, scales
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M,K,N", QMM_SHAPES)
+def test_quant_matmul_matches_plain(dev, bits, M, K, N):
+    """Ragged M, N and K (K not filling the last packed byte, N not a
+    multiple of 8, M past one row tile) against the plain version."""
+    x, packed, scales = _qmm_inputs(bits, M, K, N, dev)
     before = ops.quant_matmul.launches
     got = ops.quant_matmul(x, packed, scales, bits)
     assert ops.quant_matmul.launches == before + 1
     torch.testing.assert_close(got, ref.quant_matmul_ref(x, packed, scales,
                                                          bits),
                                rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 1000), (5, 33, 130),
+                                   (9, 2047, 1001), (1, 1, 3)])
+def test_quant_matmul_takes_an_unaligned_packed_base(dev, bits, M, K, N):
+    """``packed`` starting one byte past an alignment boundary takes the
+    kernel's byte loads (its ``vec == false`` path): the same result as
+    the aligned copy."""
+    x, packed, scales = _qmm_inputs(bits, M, K, N, dev)
+    buf = torch.empty(packed.numel() + 1, dtype=torch.int8, device=dev)
+    moved = buf[1:].view(packed.shape)
+    moved.copy_(packed)
+    assert moved.data_ptr() % 4 == 1
+    got = ops.quant_matmul(x, moved, scales, bits)
+    torch.testing.assert_close(got, ref.quant_matmul_ref(x, packed, scales,
+                                                         bits),
+                               rtol=1e-4, atol=1e-3)
+    assert torch.equal(got, ops.quant_matmul(x, packed, scales, bits))
+
+
+def test_lm_head_quant_matmul_is_one_resident_wave(dev):
+    """By the runtime's occupancy calculator every ``quant_matmul`` launch
+    fits the card, and the LM head's grid (batch 4, N = 100352) is one
+    wave on this card's SMs."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for bits in (2, 4, 8):
+        assert ops.quant_matmul_occupancy(8, 1, bits)["blocks_per_sm"] > 0
+        head = ops.quant_matmul_occupancy(4, 100352, bits)
+        assert head["blocks"] <= sms * head["blocks_per_sm"], (bits, head)
 
 
 def test_quant_matmul_refuses_what_the_kernel_cannot_take(dev):
