@@ -23,21 +23,37 @@ Phases, each printing JSON lines:
    to every other; at every scan shape ``sru_scan`` bitwise equal to lane
    0 of ``sru_scan_pop``;
 3. search path: the inference-only MOHAQ search on the paper's model
-   (``configs/sru_timit.py``, full width, seeded random weights, synthetic
-   speech): calibrate, build banks, ``SearchSession(target, "silago",
-   ("error", "speedup", "energy")).run(generations=2, pop=10, initial=40)``,
-   score the front in the packed deployment format and on the test set.
-   Every kernel's launch count over that run must be > 0. Then, on
-   generation 0's allocations, the kernel lane against the plain lane and
-   the f32 bank format against the packed one;
-4. lm_serve: stablelm-1.6b at full width (seeded random weights drawn on
+   (``configs/sru_timit.py``, full width, synthetic speech), trained first
+   on the card by ``train_small_sru`` (400 AdamW steps of 8 x 48 frames
+   from seeded random weights; the loss every 50 steps, the median step,
+   the training seconds and the baseline errors are printed, and the
+   phase fails on a non-finite loss, on a last-50-step mean loss not below
+   the first 50's, or on a 100 % baseline val error): calibrate, build
+   banks, ``SearchSession(target, "silago", ("error", "speedup",
+   "energy")).run(generations=2, pop=10, initial=40)``, score the front in
+   the packed deployment format and on the test set. Every kernel's launch
+   count over that run must be > 0. Then, on generation 0's allocations,
+   the kernel lane against the plain lane and the f32 bank format against
+   the packed one (argmax agreement >= 99.9 %, |delta error| <= 0.1 pp);
+4. beacon_search: the paper's experiment 3 on the trained target:
+   ``SearchSession(target, "bitfusion", ("error", "speedup"),
+   sram_override=...)`` inference-only and then with ``beacons=True,
+   retrain_steps=60`` (Algorithm 1: binary-connect retraining on the card,
+   every beacon's candidates scored through the kernels). Printed: each
+   beacon's allocation, retrain seconds and own-allocation error under the
+   base and the beacon's params, both fronts, the best speedup within 2, 4
+   and 8 pp, the launches and peak memory. Fails when no beacon was
+   retrained, when ``sru_scan_pop``, ``bank_mxv_pop`` or ``sru_scan`` did
+   not launch, or on a non-finite result; then the lanes and bank formats
+   are compared as in phase 3 on the first beacon's params;
+5. lm_serve: stablelm-1.6b at full width (seeded random weights drawn on
    the card), batch 4, a 128-token prompt and 32 greedy tokens through
    ``serving/lm.py`` with the int8 head on ``quant_matmul``. At every step
    the plain head runs on the same hidden state; a differing argmax is
    allowed only where the plain top-2 margin is <= 1e-3. Reported: int8
    vs dense bf16 head token agreement, prefill s, decode ms/token, peak
    memory. ``quant_matmul`` must launch once per head run (33);
-5. front_serve: the paper's SRU (the search path's target) packed for 4
+6. front_serve: the paper's SRU (the search path's trained target) packed for 4
    presets (weights 2/4/8/16 bits, activations 8) by
    ``serving.pack_deployment``, loaded, routed over 3 SLO classes and
    served by ``ContinuousBatcher(max_lanes=8, chunk=16)`` on 12 requests of
@@ -52,7 +68,7 @@ Phases, each printing JSON lines:
    test holds the scalar forward with its MxVs on ``torch.matmul`` against
    the scalar forward as it runs. Reported: the share of chunks bitwise
    equal, frames/s, continuous vs serial dispatches;
-6. timing: each kernel, its plain version and the PyTorch library call
+7. timing: each kernel, its plain version and the PyTorch library call
    (CUDA events, after warm-up) at the main paths' shapes and at the
    serving shapes; for the bank kernels the median and range of 5 repeats
    beside ``torch.bmm`` with and without its ``index_select`` gather and
@@ -68,8 +84,8 @@ Phases, each printing JSON lines:
    device times and ``host_ms`` the event-timed call (``ms_from`` says
    which).
 
-Each path (3, 4, 5) runs with the launch counts set to 0 just before it and
-read just after; the ``kernels`` line's ``launches`` add up those reads.
+Each path (3, 4, 5, 6) runs with the launch counts set to 0 just before it
+and read just after; the ``kernels`` line's ``launches`` add up those reads.
 The last line is ``{"ok": true, "device": {...}}``; a failed phase raises
 and the script exits non-zero. It exits non-zero, printing no result, where
 no CUDA device is present or the port's sources are missing.
@@ -130,6 +146,8 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 32
 QMM_SHAPES = {"head": (4, 2048, 100352),    # (M, K, N): the LM head
               "ragged": (5, 1037, 1001)}
 SLOS = ("premium", "standard", "economy")
+TRAIN_STEPS = 400             # train_small_sru's default (the reference's)
+BEACON_STEPS = 60             # retraining steps a beacon (paper experiment 3)
 
 
 def emit(obj) -> None:
@@ -509,21 +527,17 @@ def phase_kernels(dev):
 
 
 def phase_main_path(dev):
-    """The search on the paper's model through the kernels."""
+    """The search on the paper's model, trained on the card, through the
+    kernels."""
     import numpy as np
     import torch
     from repro_torch.configs.sru_timit import CONFIG
     from repro_torch.core import api
-    from repro_torch.core import sru_experiment as X
     from repro_torch.kernels import ops
-    from repro_torch.models import sru
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    target = X.build_untrained_sru(CONFIG, seed=0, device=dev)
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
+    target = train_target(dev)
     calls = []
     evaluate = target.val_error_batch
 
@@ -552,7 +566,6 @@ def phase_main_path(dev):
           "baseline_test_error": target.baseline_test_error,
           "generation_sizes": [len(a) for a, _ in calls],
           "generation_s": [round(s, 4) for _, s in calls],
-          "build_target_s": round(t_build, 3),
           "search_s": round(t_search, 3),
           "n_evals": res.n_evals, "launches": counts})
     for r, pe in zip(rows, packed_errs):
@@ -587,20 +600,186 @@ def phase_main_path(dev):
     return counts, target
 
 
-def compare_lanes(target, allocs):
+def train_target(dev):
+    """The search target: the paper's model trained on the card by
+    ``train_small_sru`` (the reference's recipe: 400 steps of batch 8 x 48
+    frames, lr 3e-3), then calibrated. Emits the loss every 50 steps, the
+    median train step, the training seconds and the baseline errors; raises
+    on a non-finite loss, a loss that does not fall (the last 50 steps'
+    mean against the first 50's) or a baseline val error of 100 %."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.sru_timit import CONFIG
+    from repro_torch.core import sru_experiment as X
+    losses, stamps = [], []
+
+    def log(step, loss):
+        losses.append(float(loss))            # waits for the step
+        stamps.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    target = X.train_small_sru(TRAIN_STEPS, cfg=CONFIG, device=dev, log=log)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    step_ms = np.diff([t0] + stamps) * 1e3
+    first, last = np.mean(losses[:50]), np.mean(losses[-50:])
+    emit({"phase": "main_path", "training": {
+        "model": CONFIG.name, "steps": len(losses), "batch": 8, "seq": 48,
+        "lr": 3e-3, "loss_every_50": {i + 1: losses[i] for i in
+                                      range(49, len(losses), 50)},
+        "first_50_mean": first, "last_50_mean": last,
+        "step_ms_median": float(np.median(step_ms)),
+        "step_ms_range": [float(step_ms.min()), float(step_ms.max())],
+        "train_s": stamps[-1] - t0, "train_and_calibrate_s": total_s,
+        "baseline_val_error": target.baseline_val_error,
+        "baseline_test_error": target.baseline_test_error}})
+    if not np.isfinite(losses).all():
+        raise AssertionError("training produced a non-finite loss")
+    if not last < first:
+        raise AssertionError(f"training loss did not fall: first 50 steps "
+                             f"{first:.4f}, last 50 {last:.4f}")
+    if not target.baseline_val_error < 100.0:
+        raise AssertionError(f"the trained model's val error is "
+                             f"{target.baseline_val_error} %")
+    return target
+
+
+def best_within(rows, baseline, budget):
+    """The best speedup on a front within ``budget`` pp of the baseline
+    error (``examples/mohaq_search_sru.py``), None where no row is."""
+    ok = [r["speedup"] for r in rows if r["error"] <= baseline + budget]
+    return max(ok) if ok else None
+
+
+def front_rows(rows):
+    return [{"alloc": {k: list(v) for k, v in r["alloc"].items()},
+             "error": r["error"], "test_error": r["test_error"],
+             "speedup": r["speedup"]} for r in rows]
+
+
+def phase_beacon_search(dev, target):
+    """The paper's experiment 3 on the trained target: Bitfusion, (error,
+    speedup), the small-SRAM bound, inference-only and then beacon-based
+    (Algorithm 1, 60 retraining steps a beacon). Every beacon's
+    generations are scored through the kernels; one beacon's params are
+    held to the plain lane and the packed banks (``compare_lanes``).
+    Returns the phase's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+    from repro_torch.training.optimizer import tree_leaves
+
+    mat = sum(target.layer_weights.values())
+    sram = int((mat * 3.5 + target.vector_weights * 16) / 8)
+    # share_memo=False: the inference-only run scores every candidate
+    # instead of reusing the silago search's errors, so its time stands
+    # beside the beacon run's (which starts a memo of its own anyway)
+    sess = api.SearchSession(target, "bitfusion", ("error", "speedup"),
+                             sram_override=sram, share_memo=False)
+    kw = dict(generations=2, pop=10, initial=40, seed=0)
+    retrain_s, scored = [], []
+    retrainer, evaluate = target.beacon_retrainer, target.val_error_batch
+
+    def timed_retrainer(steps, **skw):
+        fn = retrainer(steps, **skw)
+
+        def retrain(alloc, base):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(alloc, base)
+            torch.cuda.synchronize()
+            retrain_s.append(time.perf_counter() - t)
+            return out
+        return retrain
+
+    def recording(allocs, params=None, **ekw):
+        scored.extend(a for a in allocs if a not in scored)
+        return evaluate(allocs, params, **ekw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    inference = sess.run(**kw)
+    torch.cuda.synchronize()
+    inference_s = time.perf_counter() - t0
+    target.beacon_retrainer, target.val_error_batch = (timed_retrainer,
+                                                       recording)
+    try:
+        t0 = time.perf_counter()
+        beacon = sess.run(beacons=True, retrain_steps=BEACON_STEPS, **kw)
+        torch.cuda.synchronize()
+        beacon_s = time.perf_counter() - t0
+    finally:
+        del target.beacon_retrainer, target.val_error_batch
+    bs = beacon.beacon_search
+    beacons = [{"alloc": {k: list(v) for k, v in b.alloc.items()},
+                "retrain_s": s,
+                "error_base_params": target.val_error(b.alloc),
+                "error_beacon_params": target.val_error(b.alloc,
+                                                        params=b.params)}
+               for b, s in zip(bs.beacons, retrain_s)]
+    rows_inf, rows_b = inference.table(), beacon.table()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    base = target.baseline_val_error
+    emit({"phase": "beacon_search", "platform": "bitfusion",
+          "sram_bytes": sram, "retrain_steps": BEACON_STEPS,
+          "n_retrains": bs.n_retrains, "beacons": beacons,
+          "inference_only_s": inference_s, "beacon_s": beacon_s,
+          "n_evals": {"inference_only": inference.n_evals,
+                      "beacon": beacon.n_evals},
+          "front_inference_only": front_rows(rows_inf),
+          "front_beacon": front_rows(rows_b),
+          "best_speedup_within_pp": {
+              budget: {"inference_only": best_within(rows_inf, base, budget),
+                       "beacon": best_within(rows_b, base, budget)}
+              for budget in (2, 4, 8)},
+          "launches": counts,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if bs.n_retrains < 1:
+        raise AssertionError("the beacon search retrained no beacon")
+    for name in ("sru_scan_pop", "bank_mxv_pop", "sru_scan"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched in the beacon "
+                                 f"search ({counts})")
+    values = ([r["error"] for r in rows_inf + rows_b]
+              + [r["test_error"] for r in rows_inf + rows_b]
+              + [b[k] for b in beacons
+                 for k in ("error_base_params", "error_beacon_params")])
+    if not np.isfinite(values).all():
+        raise AssertionError(f"non-finite beacon-search results {values}")
+    for b in bs.beacons:
+        for leaf in tree_leaves(b.params):
+            if not torch.isfinite(leaf).all():
+                raise AssertionError("a beacon has non-finite params")
+
+    # every allocation the beacon search scored, under the first beacon's
+    # params (after the counts are read)
+    cmp = compare_lanes(target, scored, params=bs.beacons[0].params,
+                        phase="beacon_search")
+    emit({"phase": "beacon_search", "lanes_on_beacon": 0,
+          "allocations": len(scored), **cmp})
+    return counts
+
+
+def compare_lanes(target, allocs, params=None, phase="main_path"):
     """Kernel lane vs plain lane (both f32 banks), and f32 vs packed banks
-    (both kernel lane), on the same allocations: argmax agreement over all
-    frames, per-lane error % and the top-2 logit margin of every frame
-    whose argmax differs (a margin of 0 is an exact tie)."""
+    (both kernel lane), on the same allocations under ``params`` (default:
+    the target's): argmax agreement over all frames, per-lane error % and
+    the top-2 logit margin of every frame whose argmax differs (a margin of
+    0 is an exact tie)."""
     import torch
     from repro_torch.models import sru
+    params = target.params if params is None else params
 
     def logits(**kw):
         ev = target.batched_evaluator(True, kw.get("bank_format", "f32"),
                                       kw.get("use_kernel"))
-        banks = ev._banks_for(target.params)
+        banks = ev._banks_for(params)
         stack = ev._stack(allocs)[:len(allocs)]
-        return sru.forward_population(target.params, target.cfg,
+        return sru.forward_population(params, target.cfg,
                                       ev._feats_all, stack, banks=banks,
                                       use_kernel=ev.use_kernel), ev
 
@@ -632,7 +811,7 @@ def compare_lanes(target, allocs):
             "differing_frame_margins": sorted(margins.tolist())[:20],
             "max_abs_logit_diff": float((base - other).abs().max())}
         if agree < 0.999 or float(d_err.max()) > 0.1:
-            emit({"phase": "main_path", name: result[name]})
+            emit({"phase": phase, name: result[name]})
             raise AssertionError(f"{name}: argmax agreement {agree:.5f} "
                                  f"(need >= 0.999) or error change "
                                  f"{float(d_err.max()):.3f} pp (need <= 0.1)")
@@ -1095,10 +1274,76 @@ def time_scans(dev):
     return rows
 
 
+def profile_training(dev, target, steps: int = 3):
+    """Where a training step's time goes: ``steps`` steps of the
+    full-precision train step and of a retraining step (``qspec``: weights
+    4 bits, activations 8) under ``torch.profiler``, after one warm step
+    each. Per step: device kernels and memory operations launched, their
+    summed device time, and the host wall time with the profiler off
+    (median of ``steps`` synchronised steps); the device's idle share is
+    1 - device time / wall time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import synthetic
+    from repro_torch.models import sru
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import qat
+
+    cfg = target.cfg
+    batch = next(synthetic.speech_batches(target.task, 8, 48, seed=5,
+                                          device=dev))
+    alloc = {n: (4, 8) for n in target.layer_names}
+    wclips = {n: target.wclips[(n, 4)] for n in target.layer_names}
+    kinds = {
+        "train": (opt.AdamWConfig(lr=3e-3, schedule="cosine",
+                                  warmup_steps=20, total_steps=400,
+                                  weight_decay=0.0), {}),
+        "retrain": (opt.AdamWConfig(lr=3e-4, schedule="constant",
+                                    warmup_steps=5, weight_decay=0.0,
+                                    total_steps=60),
+                    dict(qspec=alloc, wclips=wclips,
+                         act_ranges=target.act_ranges))}
+    out = {}
+    for kind, (ocfg, fkw) in kinds.items():
+        state = opt.init_opt_state(target.params)
+
+        def step():
+            opt.adamw_step(ocfg, lambda p, f, l: qat.frame_nll(
+                sru.forward_train(p, cfg, f, **fkw), l), target.params,
+                state, batch["feats"], batch["labels"])
+
+        wall = []
+        for _ in range(steps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        wall_ms = float(np.median(wall[1:]))
+        device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+        out[kind] = {"device_ops_per_step": len(device) / steps,
+                     "device_ms_per_step": device_ms / steps,
+                     "wall_ms_per_step": wall_ms,
+                     "idle_share": (1.0 - device_ms / steps / wall_ms
+                                    if device else None)}
+    emit({"phase": "timing", "training_step_profile": out,
+          "note": "device time is None where the profiler saw no kernels"})
+    return out
+
+
 def phase_timing(dev, max_err, counts, smi_line, target):
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models import sru
+    profile_training(dev, target)
     kernels = time_scans(dev)
     bank_rows = time_banks(dev)
     for name in ("bank_mxv_pop", "bank_qmm_pop"):
@@ -1188,7 +1433,8 @@ def main() -> int:
     smi_line = phase_setup()
     max_err = phase_kernels(dev)
     counts, target = phase_main_path(dev)
-    for path_counts in (phase_lm_serve(dev), phase_front_serve(dev, target)):
+    for path_counts in (phase_beacon_search(dev, target), phase_lm_serve(dev),
+                        phase_front_serve(dev, target)):
         counts = {k: counts[k] + path_counts[k] for k in counts}
     kernels = phase_timing(dev, max_err, counts, smi_line, target)
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")

@@ -62,6 +62,52 @@ def fixed_point_16(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x / scale), -lim - 1, lim) * scale
 
 
+def quantize_int(x: torch.Tensor, bits: int, clip: float) -> torch.Tensor:
+    """Symmetric linear integer fake-quant with clipping threshold ``clip``
+    (a host float; its grid scale becomes float32 as in the reference)."""
+    lo, hi = INT_RANGES[bits]
+    scale = _f32(clip / hi, x)
+    return torch.clamp(torch.round(x / scale), lo, hi) * scale
+
+
+def quantize_weight(w: torch.Tensor, bits: int, clip=None) -> torch.Tensor:
+    """Fake-quantize a weight tensor to ``bits`` (paper menu: 2/4/8 int,
+    16 fixed point); ``clip`` defaults to the MMSE clip."""
+    if bits == 16:
+        return fixed_point_16(w)
+    if clip is None:
+        clip = mmse_clip(w, bits)
+    return quantize_int(w, bits, clip)
+
+
+def ste(x: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: the value of ``xq``, the gradient of
+    ``x``."""
+    return x + (xq - x).detach()
+
+
+def ste_quantize_weight(w: torch.Tensor, bits: int, clip) -> torch.Tensor:
+    """Binary-connect weight: quantized forward, full-precision gradient."""
+    if bits == 16:
+        return ste(w, fixed_point_16(w))
+    return ste(w, quantize_int(w, bits, clip))
+
+
+def quantize_activation(a: torch.Tensor, bits: int,
+                        expected_range: float) -> torch.Tensor:
+    """Activation fake-quant (STE) against a calibrated expected range. The
+    16-bit grid's scale is a power of two derived on the host in numpy, as
+    in the reference, so both packages land on the same grid bit for bit."""
+    if bits == 16:
+        int_bits = np.ceil(np.log2(max(expected_range, 1e-9)))
+        frac_bits = 15.0 - max(int_bits, 0.0)
+        scale = _f32(2.0 ** (-frac_bits), a)
+        lim = 2.0 ** 15 - 1
+        q = torch.clamp(torch.round(a / scale), -lim - 1, lim) * scale
+        return ste(a, q.to(a.dtype))
+    return ste(a, quantize_int(a, bits, expected_range).to(a.dtype))
+
+
 def quant_triple(bits: int, clip_or_range: float):
     """Any menu precision as a (scale, lo, hi) triple so one forward serves
     every allocation. 16-bit -> fixed-point grid. Host Python, copied."""

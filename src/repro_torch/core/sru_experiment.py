@@ -1,18 +1,18 @@
 """The SRU search target: a calibrated Bi-SRU served to the MOHAQ search.
 
-Port of ``TrainedSRU`` from the reference package's
-``core/sru_experiment.py``. The target is built from plain arrays — cfg,
-params, validation/test sets, activation ranges, MMSE weight clips and
-weight ranges — so a test can hand it exactly the reference's arrays.
-Training and beacon retraining are not ported yet
-(``supports_retrain = False``); ``build_untrained_sru`` makes a calibrated
-target from random weights and synthetic speech, following the
-reference's ``train_small_sru`` without its training loop.
+Port of ``TrainedSRU`` and ``train_small_sru`` from the reference
+package's ``core/sru_experiment.py``. The target is built from plain
+arrays — cfg, params, validation/test sets, activation ranges, MMSE weight
+clips and weight ranges — so a test can hand it exactly the reference's
+arrays. ``train_small_sru`` trains a Bi-SRU on synthetic speech and
+calibrates it; the target retrains beacons (``beacon_retrainer``) for the
+beacon-based search. ``build_untrained_sru`` makes a calibrated target
+from random weights, the same recipe without the training loop.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +23,13 @@ from repro_torch.core.mohaq import Alloc
 from repro_torch.data import synthetic
 from repro_torch.models import sru
 from repro_torch.models.sru import SRUModelConfig
+from repro_torch.training import optimizer as opt
+from repro_torch.training import qat
+
+SEARCH_CFG = SRUModelConfig(name="sru_search", input_dim=23, hidden=96,
+                            proj=48, n_sru_layers=4, n_outputs=64)
+PAPER_CFG = SRUModelConfig()   # exact Table 4 model
+
 
 @dataclass
 class TrainedSRU:
@@ -45,7 +52,7 @@ class TrainedSRU:
     # shared across every base-params search built from this model
     shared_error_memo: Dict[tuple, float] = field(default_factory=dict)
 
-    supports_retrain = False           # training is not ported yet
+    supports_retrain = True            # SearchTarget: beacons available
 
     def __post_init__(self):
         self._batched_eval = {}
@@ -79,6 +86,36 @@ class TrainedSRU:
         """Element-wise + sigmoid op count per frame (runs at max precision;
         folded into the speedup normalization, Eq. 4)."""
         return 14 * self.cfg.hidden * 2 * self.cfg.n_sru_layers * 2
+
+    # ---- SearchTarget: beacon retraining ----
+
+    def beacon_retrainer(self, retrain_steps: int = 60, *,
+                         skip_retrains: int = 0):
+        """One retraining context per search: the returned
+        ``retrain_fn(alloc, base_params)`` draws successive batches from a
+        single seeded stream, so the k-th retrain of any search sees the
+        same data whichever allocation triggered it. ``skip_retrains``
+        fast-forwards the stream past the first N retrains (each consumes
+        exactly ``retrain_steps`` batches), so a resumed search's next
+        retrain sees the batches the uninterrupted run would."""
+        data = synthetic.speech_batches(
+            self.task, 8, 48, seed=3,
+            start_step=skip_retrains * retrain_steps,
+            device=self.params["FC"]["W"].device)
+
+        def retrain_fn(alloc: Alloc, base_params):
+            wclips = {n: self.wclips[(n, a[0])]
+                      for n, a in alloc.items() if a[0] != 16}
+            return qat.retrain_sru(base_params, self.cfg, alloc, data,
+                                   steps=retrain_steps,
+                                   act_ranges=self.act_ranges,
+                                   wclips=wclips)
+        return retrain_fn
+
+    def retrain(self, alloc: Alloc, base_params=None, *, steps: int = 60):
+        """One-off binary-connect retrain under ``alloc`` (fresh stream)."""
+        base = self.params if base_params is None else base_params
+        return self.beacon_retrainer(steps)(alloc, base)
 
     # ---- SearchTarget: quantization-grid plumbing ----
 
@@ -183,6 +220,62 @@ def calibrated_target(cfg: SRUModelConfig, params, task, val_subsets,
     target.baseline_val_error = target.val_error()
     target.baseline_test_error = target.test_error()
     return target
+
+
+def _eval_target(cfg: SRUModelConfig, params, task, device) -> TrainedSRU:
+    """``params`` calibrated and wrapped with the synthetic task's
+    evaluation sets: 4 validation subsets of 8 sequences of 48 frames and a
+    test set of 32 sequences."""
+    raw_subsets, raw_test = synthetic.speech_eval_sets(
+        task, batch=4, seq=48, device=device)
+
+    def stack(bs):
+        return (torch.cat([b["feats"] for b in bs]),
+                torch.cat([b["labels"] for b in bs]))
+
+    subsets = [stack(s) for s in raw_subsets]
+    test = [stack(raw_test)]
+    cal_feats = [b["feats"] for s in raw_subsets for b in s]
+    return calibrated_target(cfg, params, task, subsets, test, cal_feats)
+
+
+def train_small_sru(steps: int = 400, *, cfg: SRUModelConfig = SEARCH_CFG,
+                    batch: int = 8, seq: int = 48, lr: float = 3e-3,
+                    seed: int = 0, device="cuda", verbose: bool = False,
+                    log: Optional[Callable[[int, torch.Tensor], None]] = None
+                    ) -> TrainedSRU:
+    """Train a Bi-SRU on the synthetic speech task and calibrate it: AdamW
+    (cosine schedule, 20 warm-up steps, no weight decay) on ``steps``
+    batches of ``batch`` x ``seq`` frames, the reference's recipe.
+
+    The initial weights come from a ``torch.Generator`` seeded with
+    ``seed`` (``sru.init_params``): the reference draws them from
+    ``jax.random.PRNGKey(0)``, which the port cannot reproduce, and its
+    feature streams differ too (``data/synthetic.py``), so the trained
+    weights differ from the reference's. ``log(step, loss)`` is called
+    after every step with the loss as a 0-dim tensor on ``device``;
+    ``verbose`` prints it every 50 steps."""
+    task = synthetic.SpeechTask(input_dim=cfg.input_dim,
+                                n_states=cfg.n_outputs)
+    params = sru.init_params(torch.Generator().manual_seed(seed), cfg,
+                             device=device)
+    ocfg = opt.AdamWConfig(lr=lr, schedule="cosine", warmup_steps=20,
+                           total_steps=steps, weight_decay=0.0)
+    ostate = opt.init_opt_state(params)
+
+    def loss_fn(p, feats, labels):
+        return qat.frame_nll(sru.forward_train(p, cfg, feats), labels)
+
+    data = synthetic.speech_batches(task, batch, seq, device=device)
+    for i in range(steps):
+        b = next(data)
+        params, ostate, loss = opt.adamw_step(ocfg, loss_fn, params, ostate,
+                                              b["feats"], b["labels"])
+        if log is not None:
+            log(i, loss)
+        if verbose and (i + 1) % 50 == 0:
+            print(f"  [sru-train] step {i+1}/{steps} loss {float(loss):.3f}")
+    return _eval_target(cfg, params, task, device)
 
 
 def build_untrained_sru(cfg: SRUModelConfig, *, seed: int = 0,

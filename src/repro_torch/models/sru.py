@@ -18,7 +18,9 @@ public functions keep its layouts: (P, B, T, m) streams and (P, L, 6) qp
 stacks. The population forward has a plain lane (PyTorch ops) and a kernel
 lane (``kernels/ops.py``: the CUDA kernels on a card, their plain versions
 on the CPU); on a CUDA device it takes the kernel lane unless told
-otherwise.
+otherwise. Training and beacon retraining go through ``forward_train``
+(``forward(qspec=)``), a differentiable forward of ``torch.matmul`` and a
+time-step loop, as the reference's is ``jnp.einsum`` and ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -244,18 +246,37 @@ def weight_ranges(params, cfg: SRUModelConfig) -> Dict[str, float]:
     return out
 
 
-@torch.no_grad()
 def forward(params, cfg: SRUModelConfig, feats,
             calibrator: Optional[Q.ActRangeCalibrator] = None,
-            qp: Optional[Dict[str, tuple]] = None):
+            qp: Optional[Dict[str, tuple]] = None,
+            qspec: Optional[Dict[str, Tuple[int, int]]] = None,
+            wclips: Optional[Dict[str, float]] = None,
+            act_ranges: Optional[Dict[str, float]] = None):
     """feats: (B, T, input_dim) -> logits (B, T, n_outputs).
 
-    ``qp[name] = (w_scale, w_lo, w_hi, a_scale, a_lo, a_hi)``: dynamic
-    grids for each quantized layer. MxV inputs are fake-quantized (with the
-    STE expression, as in the reference), MxV weights are pure grid values,
-    recurrent vectors/biases 16-bit fixed point. ``calibrator`` observes
-    each MxV input once. (The reference's static ``qspec`` path serves beacon
-    retraining and waits for the training port.)"""
+    Two quantization entry points, as in the reference:
+    - ``qp[name] = (w_scale, w_lo, w_hi, a_scale, a_lo, a_hi)``: dynamic
+      grids for each quantized layer, the evaluation path (no gradients,
+      the kernels on a card). MxV inputs are fake-quantized (with the STE
+      expression, as in the reference), MxV weights are pure grid values,
+      recurrent vectors/biases 16-bit fixed point. ``calibrator``
+      observes each MxV input once.
+    - ``qspec[name] = (w_bits, a_bits)``: static bits, the differentiable
+      path that retrains beacons (``forward_train``, with ``wclips`` and
+      ``act_ranges``)."""
+    if qspec is not None:
+        if qp is not None or calibrator is not None:
+            raise ValueError("qspec (the training path) takes neither qp "
+                             "nor a calibrator")
+        return forward_train(params, cfg, feats, qspec=qspec, wclips=wclips,
+                             act_ranges=act_ranges)
+    return _forward_eval(params, cfg, feats, calibrator, qp)
+
+
+@torch.no_grad()
+def _forward_eval(params, cfg: SRUModelConfig, feats, calibrator, qp):
+    """The evaluation forward: MxVs on ``_mxv`` (``bank_mxv_pop``, P = 1)
+    and the recurrence on ``kernels.ops.sru_scan``."""
     quantized = qp is not None
 
     def prep_w(name, w):
@@ -288,6 +309,92 @@ def forward(params, cfg: SRUModelConfig, feats,
     xq = prep_x("FC", x)
     return _mxv(xq, prep_w("FC", params["FC"]["W"])) + params["FC"]["b"]
 
+
+def _bi_sru_train(lp, w_fwd, w_bwd, x, *, quant16_vectors: bool):
+    """Both directions of one Bi-SRU layer, differentiable. x: (B, T, m) ->
+    (B, T, 2n). The recurrence is the reference's ``lax.scan`` body as a
+    loop over time steps that autograd differentiates, with the two
+    directions stacked so that a step is one set of elementwise ops (the
+    backward direction runs on time-reversed streams). Its products are
+    ``torch.matmul``, as the reference's are ``jnp.einsum``."""
+    n = lp["fwd"]["v"].shape[1]
+    B, T = x.shape[:2]
+    vs, bs = [], []
+    for key in ("fwd", "bwd"):
+        v, b = lp[key]["v"], lp[key]["b"]
+        if quant16_vectors:                   # no STE: zero gradient
+            v, b = Q.fixed_point_16(v), Q.fixed_point_16(b)
+        vs.append(v)
+        bs.append(b)
+    v = torch.stack(vs)[:, None]                          # (2, 1, 2, n)
+    b = torch.stack(bs)[:, None]
+    u = torch.stack([torch.matmul(x, w_fwd),
+                     torch.matmul(x, w_bwd).flip(1)])     # (2, B, T, 3n)
+    u = u.reshape(2, B, T, 3, n)                          # u_w, u_f, u_r
+    c = u.new_zeros((2, B, n))
+    hs, rs = [], []
+    for t in range(T):
+        ut = u[:, :, t]
+        g = torch.sigmoid(ut[:, :, 1:] + v * c[:, :, None] + b)   # f, r
+        f, r = g[:, :, 0], g[:, :, 1]
+        c = f * c + (1.0 - f) * ut[:, :, 0]
+        hs.append(r * c)
+        rs.append(r)
+    h = torch.stack(hs, dim=2)                            # (2, B, T, n)
+    if x.shape[-1] == n:                                  # highway skip
+        h = h + (1.0 - torch.stack(rs, dim=2)) * torch.stack([x, x.flip(1)])
+    return torch.cat([h[0], h[1].flip(1)], dim=-1)
+
+
+def forward_train(params, cfg: SRUModelConfig, feats,
+                  qspec: Optional[Dict[str, Tuple[int, int]]] = None,
+                  wclips: Optional[Dict[str, float]] = None,
+                  act_ranges: Optional[Dict[str, float]] = None):
+    """The differentiable forward of training and beacon retraining (the
+    reference's ``forward`` without ``qp``). feats: (B, T, input_dim) ->
+    logits (B, T, n_outputs).
+
+    ``qspec=None``: full precision. ``qspec[name] = (w_bits, a_bits)``:
+    binary-connect quantization of the listed layers — MxV weights through
+    ``ste_quantize_weight`` at ``wclips[name]`` (the MMSE clip if missing),
+    MxV inputs through ``quantize_activation`` at ``act_ranges[name]``
+    (the input's max |x| if missing), and every recurrent vector and bias
+    16-bit fixed point without STE, so their gradients are zero and
+    retraining leaves them as they are."""
+    quantized = qspec is not None
+    wclips = wclips or {}
+    act_ranges = act_ranges or {}
+
+    def prep_w(name, w):
+        if quantized and name in qspec:
+            bits = qspec[name][0]
+            clip = wclips.get(name)
+            if clip is None and bits != 16:
+                clip = Q.mmse_clip(w, bits)
+            return Q.ste_quantize_weight(w, bits, clip)
+        return w
+
+    def prep_x(name, x):
+        if quantized and name in qspec:
+            rng = act_ranges.get(name)
+            if rng is None:
+                rng = float(torch.max(torch.abs(x)))
+            return Q.quantize_activation(x, qspec[name][1], rng)
+        return x
+
+    x = feats
+    for i in range(cfg.n_sru_layers):
+        name = f"L{i}"
+        lp = params[name]
+        x = _bi_sru_train(lp, prep_w(name, lp["fwd"]["W"]),
+                          prep_w(name, lp["bwd"]["W"]), prep_x(name, x),
+                          quant16_vectors=quantized)
+        if i < cfg.n_sru_layers - 1:
+            pname = f"Pr{i + 1}"
+            x = torch.matmul(prep_x(pname, x),
+                             prep_w(pname, params[pname]["W"]))
+    return (torch.matmul(prep_x("FC", x), prep_w("FC", params["FC"]["W"]))
+            + params["FC"]["b"])
 
 def extend_banks_u0(banks, cfg: SRUModelConfig, feats, a_trips,
                     use_kernel: Optional[bool] = None):

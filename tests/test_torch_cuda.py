@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
 version (scan: 1e-5; MxVs: rtol 1e-4 / atol 1e-3; the packed MxV bitwise
 equal to the f32 MxV on the dequantized bank), the wrappers' launch counts
-and layout checks, and the model's kernel lane against its plain lane.
+and layout checks, the model's kernel lane against its plain lane, and the
+training forward and retraining on the card against the CPU.
 
 Every test is marked ``gpu`` and skips where no CUDA device is present.
 The file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -323,3 +324,51 @@ def test_model_kernel_lane_matches_plain_lane(dev):
         assert sum(after.values()) > sum(before.values()) + 6
         torch.testing.assert_close(got, logits(False, **kw), rtol=1e-4,
                                    atol=1e-3)
+
+
+def test_training_forward_and_retrain_on_the_card(dev):
+    """``forward(qspec=)`` on the card (``torch.matmul`` and the time-step
+    loop; no custom kernel): the retraining loss within rtol 1e-5 of the
+    CPU's and each gradient leaf within 1e-4 of its largest |gradient|; then
+    three ``retrain_sru`` steps give finite params with v and b unchanged."""
+    from repro_torch.core import sru_experiment as X
+    from repro_torch.data import synthetic as S
+    from repro_torch.models import sru
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import qat
+    cfg = sru.SRUModelConfig(name="tiny", input_dim=5, hidden=40, proj=24,
+                             n_sru_layers=3, n_outputs=33)
+    target = X.build_untrained_sru(cfg, seed=0, device="cpu")
+    alloc = {nm: (b, a) for nm, b, a in zip(
+        cfg.layer_names(), (16, 8, 4, 2, 8, 4), (8, 4, 16, 8, 2, 4))}
+    wclips = {n: target.wclips[(n, a[0])] for n, a in alloc.items()
+              if a[0] != 16}
+    batch = S.speech_batch(target.task, 8, 48, seed=3, device="cpu")
+
+    def loss_fn(p, feats, labels):
+        return qat.frame_nll(sru.forward(p, cfg, feats, qspec=alloc,
+                                         wclips=wclips,
+                                         act_ranges=target.act_ranges),
+                             labels)
+
+    on_card = sru.params_from_numpy(sru.params_to_numpy(target.params), dev)
+    want_loss, want_g = opt.value_and_grad(loss_fn, target.params,
+                                           batch["feats"], batch["labels"])
+    got_loss, got_g = opt.value_and_grad(loss_fn, on_card,
+                                         batch["feats"].to(dev),
+                                         batch["labels"].to(dev))
+    assert float(got_loss) == pytest.approx(float(want_loss), rel=1e-5)
+    for g, w in zip(opt.tree_leaves(got_g), opt.tree_leaves(want_g)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+    beacon = qat.retrain_sru(
+        on_card, cfg, alloc, S.speech_batches(target.task, 8, 48, seed=3,
+                                              device=dev),
+        steps=3, act_ranges=target.act_ranges, wclips=wclips)
+    for leaf in opt.tree_leaves(beacon):
+        assert leaf.is_cuda and torch.isfinite(leaf).all()
+    for i in range(cfg.n_sru_layers):
+        for d in ("fwd", "bwd"):
+            for k in ("v", "b"):
+                assert torch.equal(beacon[f"L{i}"][d][k],
+                                   on_card[f"L{i}"][d][k])

@@ -5,6 +5,8 @@ packed banks, requantizing lanes), and the Pareto fronts of
 on the reference's own arrays (see ``test_torch_sru.reference_target``).
 Also the evaluator's fault hooks and the parts of the search surface that
 wait for later ports."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -118,12 +120,17 @@ def test_search_fronts_equal(pair, platform):
 
 
 def test_search_surface_waiting_for_later_ports(pair):
+    """Checkpointed search waits for its port; beacons need a target that
+    retrains, and one whose ``supports_retrain`` is false still raises."""
     _, port = pair
     sess = TA.SearchSession(port, "bitfusion", ("error", "speedup"))
     with pytest.raises(NotImplementedError, match="Checkpoint"):
         sess.run(generations=1, pop=2, initial=2, checkpoint_dir="ckpt")
+    frozen = dataclasses.replace(port)
+    frozen.supports_retrain = False
     with pytest.raises(NotImplementedError, match="retrain"):
-        sess.run(generations=1, pop=2, initial=2, beacons=True)
+        TA.SearchSession(frozen, "bitfusion", ("error", "speedup")).run(
+            generations=1, pop=2, initial=2, beacons=True)
 
 
 def test_fault_hooks(pair):
