@@ -28,7 +28,10 @@ Phases, each printing JSON lines:
    from seeded random weights; the loss every 50 steps, the median step,
    the training seconds and the baseline errors are printed, and the
    phase fails on a non-finite loss, on a last-50-step mean loss not below
-   the first 50's, or on a 100 % baseline val error): calibrate, build
+   the first 50's, or on a 100 % baseline val error). The trained params
+   are saved by ``training.checkpoint.save`` and restored into a fresh
+   template on the card (the phase fails unless ``tree_digest`` and
+   ``target_fingerprint`` are equal). Then: calibrate, build
    banks, ``SearchSession(target, "silago", ("error", "speedup",
    "energy")).run(generations=2, pop=10, initial=40)``, score the front in
    the packed deployment format and on the test set. Every kernel's launch
@@ -39,21 +42,37 @@ Phases, each printing JSON lines:
    ``SearchSession(target, "bitfusion", ("error", "speedup"),
    sram_override=...)`` inference-only and then with ``beacons=True,
    retrain_steps=60`` (Algorithm 1: binary-connect retraining on the card,
-   every beacon's candidates scored through the kernels). Printed: each
+   every beacon's candidates scored through the kernels), checkpointed
+   into a ``SearchStore`` (its ``checkpoint_stats`` and bytes printed): the
+   uninterrupted run of phase 5. Printed: each
    beacon's allocation, retrain seconds and own-allocation error under the
    base and the beacon's params, both fronts, the best speedup within 2, 4
    and 8 pp, the launches and peak memory. Fails when no beacon was
    retrained, when ``sru_scan_pop``, ``bank_mxv_pop`` or ``sru_scan`` did
    not launch, or on a non-finite result; then the lanes and bank formats
    are compared as in phase 3 on the first beacon's params;
-5. lm_serve: stablelm-1.6b at full width (seeded random weights drawn on
+5. resume: two child processes (``python3 chip_smoke.py --resume-child
+   SPEC``), each restoring the trained params from phase 3's training
+   checkpoint and building the target on the card, run phase 4's beacon
+   search into a fresh store. The first kills itself with SIGKILL right
+   after ``SearchStore.save`` commits generation K (the first generation
+   whose checkpoint in phase 4's store holds a retrain); the second
+   resumes its store. Fails unless the first died by SIGKILL with a
+   retrain on disk, the resumed run equals phase 4's in ``front_key()``,
+   ``n_evals``, ``n_retrains`` and every beacon's digest, and it ran only
+   the retrains the store did not hold. Then ``front_from_store`` on phase
+   4's store must give that run's front, and ``pack_deployment`` /
+   ``load_deployment`` round-trip it with equal ``tree_digest``. Printed:
+   retrains restored and run after the kill, each child's seconds, the
+   resumed search's seconds beside the uninterrupted run's;
+6. lm_serve: stablelm-1.6b at full width (seeded random weights drawn on
    the card), batch 4, a 128-token prompt and 32 greedy tokens through
    ``serving/lm.py`` with the int8 head on ``quant_matmul``. At every step
    the plain head runs on the same hidden state; a differing argmax is
    allowed only where the plain top-2 margin is <= 1e-3. Reported: int8
    vs dense bf16 head token agreement, prefill s, decode ms/token, peak
    memory. ``quant_matmul`` must launch once per head run (33);
-6. front_serve: the paper's SRU (the search path's trained target) packed for 4
+7. front_serve: the paper's SRU (the search path's trained target) packed for 4
    presets (weights 2/4/8/16 bits, activations 8) by
    ``serving.pack_deployment``, loaded, routed over 3 SLO classes and
    served by ``ContinuousBatcher(max_lanes=8, chunk=16)`` on 12 requests of
@@ -68,7 +87,7 @@ Phases, each printing JSON lines:
    test holds the scalar forward with its MxVs on ``torch.matmul`` against
    the scalar forward as it runs. Reported: the share of chunks bitwise
    equal, frames/s, continuous vs serial dispatches;
-7. timing: each kernel, its plain version and the PyTorch library call
+8. timing: each kernel, its plain version and the PyTorch library call
    (CUDA events, after warm-up) at the main paths' shapes and at the
    serving shapes; for the bank kernels the median and range of 5 repeats
    beside ``torch.bmm`` with and without its ``index_select`` gather and
@@ -84,8 +103,9 @@ Phases, each printing JSON lines:
    device times and ``host_ms`` the event-timed call (``ms_from`` says
    which).
 
-Each path (3, 4, 5, 6) runs with the launch counts set to 0 just before it
-and read just after; the ``kernels`` line's ``launches`` add up those reads.
+Each path (3, 4, 5, 6, 7) runs with the launch counts set to 0 just before
+it and read just after (phase 5: in the resumed child, around its search);
+the ``kernels`` line's ``launches`` add up those reads.
 The last line is ``{"ok": true, "device": {...}}``; a failed phase raises
 and the script exits non-zero. It exits non-zero, printing no result, where
 no CUDA device is present or the port's sources are missing.
@@ -94,11 +114,15 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -148,6 +172,20 @@ QMM_SHAPES = {"head": (4, 2048, 100352),    # (M, K, N): the LM head
 SLOS = ("premium", "standard", "economy")
 TRAIN_STEPS = 400             # train_small_sru's default (the reference's)
 BEACON_STEPS = 60             # retraining steps a beacon (paper experiment 3)
+SEARCH_KW = dict(generations=2, pop=10, initial=40, seed=0)
+TRAINED_DIR = "trained"       # the training checkpoint, under the work dir
+STORE_DIR = "search_store"    # the uninterrupted beacon run's SearchStore
+CHILD_TIMEOUT_S = 600
+
+
+@dataclass
+class BeaconRun:
+    """The uninterrupted checkpointed beacon search of ``beacon_search``."""
+    store: Path
+    sram: int
+    seconds: float
+    summary: dict           # run_summary of its result
+    front: list             # its front's allocations
 
 
 def emit(obj) -> None:
@@ -526,9 +564,9 @@ def phase_kernels(dev):
     return out
 
 
-def phase_main_path(dev):
-    """The search on the paper's model, trained on the card, through the
-    kernels."""
+def phase_main_path(dev, work):
+    """The search on the paper's model, trained on the card (and saved as
+    a training checkpoint under ``work``), through the kernels."""
     import numpy as np
     import torch
     from repro_torch.configs.sru_timit import CONFIG
@@ -538,6 +576,7 @@ def phase_main_path(dev):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     target = train_target(dev)
+    save_trained(target, dev, work / TRAINED_DIR)
     calls = []
     evaluate = target.val_error_batch
 
@@ -644,6 +683,50 @@ def train_target(dev):
     return target
 
 
+def save_trained(target, dev, ckpt_dir):
+    """The trained params saved by ``training.checkpoint.save`` and
+    restored into a fresh template on the card: raises unless the restored
+    tree's ``tree_digest`` and the target's ``target_fingerprint`` equal
+    the trained ones. The resume phase's children start from this
+    checkpoint."""
+    import dataclasses
+    import torch
+    from repro_torch.core import checkpointing as ckpt
+    from repro_torch.core import durable_io
+    from repro_torch.models import sru
+    from repro_torch.training import checkpoint as tc
+    t0 = time.perf_counter()
+    path = tc.save(str(ckpt_dir), TRAIN_STEPS, target.params, keep=1)
+    save_s = time.perf_counter() - t0
+    template = sru.init_params(torch.Generator().manual_seed(1), target.cfg,
+                               device=dev)
+    t0 = time.perf_counter()
+    restored, step = tc.restore(str(ckpt_dir), template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    digest = durable_io.tree_digest(target.params)
+    got = {"tree_digest": durable_io.tree_digest(restored),
+           "target_fingerprint": ckpt.target_fingerprint(
+               dataclasses.replace(target, params=restored))}
+    want = {"tree_digest": digest,
+            "target_fingerprint": ckpt.target_fingerprint(target)}
+    on_card = all(t.is_cuda for t in durable_io.flatten_tree(
+        restored).values())
+    emit({"phase": "main_path", "training_checkpoint": {
+        "step": step, "bytes": dir_bytes(Path(path)),
+        "save_s": save_s, "restore_s": restore_s, "restored_on_card": on_card,
+        "tree_digest": digest[:16],
+        "target_fingerprint": want["target_fingerprint"][:16],
+        "equal": got == want}})
+    if got != want or not on_card:
+        raise AssertionError(f"the restored training checkpoint differs: "
+                             f"{got} != {want} (on the card: {on_card})")
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
 def best_within(rows, baseline, budget):
     """The best speedup on a front within ``budget`` pp of the baseline
     error (``examples/mohaq_search_sru.py``), None where no row is."""
@@ -657,27 +740,27 @@ def front_rows(rows):
              "speedup": r["speedup"]} for r in rows]
 
 
-def phase_beacon_search(dev, target):
+def phase_beacon_search(dev, target, work):
     """The paper's experiment 3 on the trained target: Bitfusion, (error,
     speedup), the small-SRAM bound, inference-only and then beacon-based
-    (Algorithm 1, 60 retraining steps a beacon). Every beacon's
-    generations are scored through the kernels; one beacon's params are
-    held to the plain lane and the packed banks (``compare_lanes``).
-    Returns the phase's launch counts."""
+    (Algorithm 1, 60 retraining steps a beacon), checkpointed into a
+    ``SearchStore`` under ``work``. Every beacon's generations are scored
+    through the kernels; one beacon's params are held to the plain lane
+    and the packed banks (``compare_lanes``). Returns the phase's launch
+    counts and the beacon run (``BeaconRun``) the resume phase repeats."""
     import numpy as np
     import torch
     from repro_torch.core import api
     from repro_torch.kernels import ops
     from repro_torch.training.optimizer import tree_leaves
 
-    mat = sum(target.layer_weights.values())
-    sram = int((mat * 3.5 + target.vector_weights * 16) / 8)
+    sram = beacon_sram(target)
     # share_memo=False: the inference-only run scores every candidate
     # instead of reusing the silago search's errors, so its time stands
     # beside the beacon run's (which starts a memo of its own anyway)
     sess = api.SearchSession(target, "bitfusion", ("error", "speedup"),
                              sram_override=sram, share_memo=False)
-    kw = dict(generations=2, pop=10, initial=40, seed=0)
+    kw = dict(SEARCH_KW)
     retrain_s, scored = [], []
     retrainer, evaluate = target.beacon_retrainer, target.val_error_batch
 
@@ -706,9 +789,11 @@ def phase_beacon_search(dev, target):
     inference_s = time.perf_counter() - t0
     target.beacon_retrainer, target.val_error_batch = (timed_retrainer,
                                                        recording)
+    store = work / STORE_DIR
     try:
         t0 = time.perf_counter()
-        beacon = sess.run(beacons=True, retrain_steps=BEACON_STEPS, **kw)
+        beacon = sess.run(beacons=True, retrain_steps=BEACON_STEPS,
+                          checkpoint_dir=str(store), **kw)
         torch.cuda.synchronize()
         beacon_s = time.perf_counter() - t0
     finally:
@@ -738,6 +823,9 @@ def phase_beacon_search(dev, target):
               for budget in (2, 4, 8)},
           "launches": counts,
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    emit({"phase": "beacon_search", "checkpoint_stats":
+          beacon.checkpoint_stats, "store_bytes": dir_bytes(store),
+          "store_files": sum(1 for f in store.rglob("*") if f.is_file())})
     if bs.n_retrains < 1:
         raise AssertionError("the beacon search retrained no beacon")
     for name in ("sru_scan_pop", "bank_mxv_pop", "sru_scan"):
@@ -761,6 +849,268 @@ def phase_beacon_search(dev, target):
                         phase="beacon_search")
     emit({"phase": "beacon_search", "lanes_on_beacon": 0,
           "allocations": len(scored), **cmp})
+    return counts, BeaconRun(store=store, sram=sram, seconds=beacon_s,
+                             summary=run_summary(beacon),
+                             front=[r["alloc"] for r in rows_b])
+
+
+def beacon_sram(target) -> int:
+    """The small-SRAM bound of the beacon search (paper experiment 3)."""
+    mat = sum(target.layer_weights.values())
+    return int((mat * 3.5 + target.vector_weights * 16) / 8)
+
+
+def beacon_settings():
+    """The ``SETTINGS.json`` of the beacon search's store
+    (``SearchSession.run``'s run settings)."""
+    return {"generations": SEARCH_KW["generations"],
+            "pop": SEARCH_KW["pop"], "initial": SEARCH_KW["initial"],
+            "objectives": ["error", "speedup"], "beacons": True,
+            "retrain_steps": BEACON_STEPS, "distance_threshold": 6.0}
+
+
+def run_summary(res) -> dict:
+    """What a resumed beacon search must reproduce, in JSON form: the front
+    (``front_key``), evaluations, retrains and each beacon's digest."""
+    from repro_torch.core import durable_io
+    bs = res.beacon_search
+    return json.loads(json.dumps({
+        "front_key": res.front_key(), "n_evals": res.n_evals,
+        "n_retrains": bs.n_retrains,
+        "beacon_digests": [durable_io.tree_digest(b.params)
+                           for b in bs.beacons]}))
+
+
+def configure_torch():
+    """The port on the path and the parity flags set (TF32 and reduced
+    bf16 reductions off), in this process and in the resume children."""
+    import torch
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def resume_child(spec: dict) -> int:
+    """One process of the resume phase (``--resume-child SPEC``): restore
+    the trained params from the training checkpoint, build the target on
+    the card, and run the beacon search of ``beacon_search`` into
+    ``spec["store"]`` (resuming it when ``spec["resume"]``). With
+    ``spec["kill_after"]`` the process kills itself with SIGKILL right
+    after ``SearchStore.save`` commits that generation. Prints one
+    ``RESULT {...}`` line."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device is present")
+    configure_torch()
+    from repro_torch.configs.sru_timit import CONFIG
+    from repro_torch.core import api
+    from repro_torch.core import checkpointing as ckpt
+    from repro_torch.core import sru_experiment as X
+    from repro_torch.kernels import ops
+    from repro_torch.models import sru
+    from repro_torch.training import checkpoint as tc
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    template = sru.init_params(torch.Generator().manual_seed(1), CONFIG,
+                               device=dev)
+    params, _ = tc.restore(spec["trained"], template)
+    target = X.target_from_params(CONFIG, params, device=dev)
+    fingerprint = ckpt.target_fingerprint(target)
+    if fingerprint != spec["fingerprint"]:
+        raise AssertionError(f"the restored target's fingerprint "
+                             f"{fingerprint[:12]} is not the trained one's "
+                             f"{spec['fingerprint'][:12]}")
+    setup_s = time.perf_counter() - t0
+    if spec["kill_after"] is not None:
+        real_save = ckpt.SearchStore.save
+
+        def save_then_die(self, key, settings, state, **kw):
+            path = real_save(self, key, settings, state, **kw)
+            if state.next_gen == spec["kill_after"]:
+                os.kill(os.getpid(), signal.SIGKILL)
+            return path
+        ckpt.SearchStore.save = save_then_die
+    retrain_s = []
+    retrainer = target.beacon_retrainer
+
+    def timed_retrainer(steps, **kw):
+        fn = retrainer(steps, **kw)
+
+        def retrain(alloc, base):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(alloc, base)
+            torch.cuda.synchronize()
+            retrain_s.append(time.perf_counter() - t)
+            return out
+        return retrain
+
+    target.beacon_retrainer = timed_retrainer
+    lines = []
+    sess = api.SearchSession(target, "bitfusion", ("error", "speedup"),
+                             sram_override=spec["sram"], share_memo=False)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sess.run(beacons=True, retrain_steps=BEACON_STEPS,
+                   checkpoint_dir=spec["store"], resume=spec["resume"],
+                   log=lines.append, **SEARCH_KW)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+           or m == "repro" or m.startswith("repro.")]
+    if bad:
+        raise AssertionError(f"imported the reference stack: {bad[:5]}")
+    print("RESULT " + json.dumps({
+        **run_summary(res), "setup_s": setup_s, "search_s": search_s,
+        "retrain_s": retrain_s,
+        "resumed": [ln for ln in lines if "resumed from checkpoint" in ln],
+        "checkpoint_stats": res.checkpoint_stats, "launches": counts}),
+        flush=True)
+    return 0
+
+
+def spawn_child(spec: dict):
+    """Run ``resume_child`` in a fresh Python process; returns the
+    completed process and its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--resume-child",
+         json.dumps(spec)], capture_output=True, text=True,
+        timeout=CHILD_TIMEOUT_S, cwd=str(REPO))
+    return proc, time.perf_counter() - t0
+
+
+def child_result(proc) -> dict:
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"resume child failed (rc {proc.returncode}):"
+                             f"\n{proc.stderr[-3000:]}")
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+def phase_resume(target, work, run: BeaconRun):
+    """Crash and resume of the beacon search on the card, in two child
+    processes that each restore the trained params from the training
+    checkpoint: the first runs ``run``'s search into a fresh store and
+    SIGKILLs itself right after generation K is committed (K: the first
+    generation whose checkpoint in ``run``'s store holds a retrain); the
+    second resumes that store. Fails unless the first died by SIGKILL with
+    a retrain on disk, the resumed run equals ``run`` in front, evaluations,
+    retrains and beacon digests, and it ran only the retrains the store did
+    not hold. Then ``front_from_store`` on ``run``'s store gives ``run``'s
+    front, which ``pack_deployment``/``load_deployment`` round-trip with
+    equal digests. Returns the children's launch counts."""
+    from repro_torch.core import checkpointing as ckpt
+    from repro_torch.core import durable_io
+    from repro_torch.core.hardware import get_platform
+    from repro_torch.kernels import ops
+    from repro_torch.serving import convert, load_deployment
+
+    key = ckpt.search_key(target, get_platform("bitfusion"),
+                          SEARCH_KW["seed"], sram_bytes=run.sram)
+    settings = beacon_settings()
+    store = ckpt.SearchStore(str(run.store))
+    on_disk = {}
+    for g in store.generations(key, settings):
+        path = Path(store.dir_for(key, settings)) / store._FMT.format(g)
+        state, _ = ckpt.deserialize_state(
+            durable_io.read_checksummed(str(path)), target.params)
+        on_disk[g] = state.n_retrains
+    total = run.summary["n_retrains"]
+    if on_disk.get(SEARCH_KW["generations"]) != total:
+        raise AssertionError(f"the uninterrupted store's retrains per "
+                             f"generation {on_disk} end below {total}")
+    # the first generation with a retrain on disk, before the last one;
+    # one that leaves retrains to run after the kill where there is one
+    held = [g for g in sorted(on_disk)
+            if g < SEARCH_KW["generations"] and on_disk[g] >= 1]
+    if not held:
+        raise AssertionError(f"no generation before the last holds a "
+                             f"retrain: {on_disk}")
+    kill_after = next((g for g in held if on_disk[g] < total), held[0])
+
+    killed_store = work / "killed_store"
+    spec = {"trained": str(work / TRAINED_DIR), "store": str(killed_store),
+            "sram": run.sram, "fingerprint": ckpt.target_fingerprint(target),
+            "resume": False, "kill_after": kill_after}
+    killed, killed_s = spawn_child(spec)
+    if killed.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the first child was to die by SIGKILL, rc "
+                             f"{killed.returncode}:\n{killed.stderr[-3000:]}")
+    if any(ln.startswith("RESULT ") for ln in killed.stdout.splitlines()):
+        raise AssertionError("the killed child printed a result")
+    mid = ckpt.SearchStore(str(killed_store)).load_latest(
+        key, settings, params_template=target.params)
+    if mid is None or mid.next_gen != kill_after or mid.n_retrains < 1:
+        raise AssertionError(f"the killed child's store holds generation "
+                             f"{getattr(mid, 'next_gen', None)} with "
+                             f"{getattr(mid, 'n_retrains', None)} retrains "
+                             f"(expected {kill_after}, >= 1)")
+    if mid.beacon_digests != run.summary["beacon_digests"][:mid.n_retrains]:
+        raise AssertionError("the killed child's stored beacons differ from "
+                             "the uninterrupted run's")
+
+    resumed, resumed_s = spawn_child({**spec, "resume": True,
+                                      "kill_after": None})
+    got = child_result(resumed)
+    counts = {k: got["launches"].get(k, 0) for k in ops.launch_counts()}
+    want = run.summary
+    same = {k: got[k] == want[k] for k in want}
+    retrains_after = len(got["retrain_s"])
+    emit({"phase": "resume", "kill_after_generation": kill_after,
+          "retrains_per_generation_uninterrupted": on_disk,
+          "retrains_restored_from_disk": mid.n_retrains,
+          "retrains_run_after_kill": retrains_after,
+          "retrain_s_after_kill": got["retrain_s"],
+          "killed_child": {"rc": killed.returncode, "wall_s": killed_s,
+                           "store_bytes": dir_bytes(killed_store)},
+          "resumed_child": {"wall_s": resumed_s, "setup_s": got["setup_s"],
+                            "search_s": got["search_s"],
+                            "log": got["resumed"],
+                            "checkpoint_stats": got["checkpoint_stats"]},
+          "uninterrupted_search_s": run.seconds,
+          "equal_to_uninterrupted": same, "n_evals": got["n_evals"],
+          "n_retrains": got["n_retrains"], "launches": counts})
+    if not all(same.values()):
+        raise AssertionError(f"the resumed run differs from the "
+                             f"uninterrupted one: {same}")
+    if not got["resumed"]:
+        raise AssertionError("the second child did not resume")
+    if retrains_after != want["n_retrains"] - mid.n_retrains:
+        raise AssertionError(f"the resumed child ran {retrains_after} "
+                             f"retrains; the store held {mid.n_retrains} "
+                             f"of {want['n_retrains']}")
+
+    # the uninterrupted store's front, packed and loaded back
+    allocs, rows = convert.front_from_store(str(run.store), target)
+
+    def keyed(front):
+        return sorted({tuple(sorted((n, tuple(v)) for n, v in a.items()))
+                       for a in front})
+
+    t0 = time.perf_counter()
+    manifest = convert.pack_deployment(target, allocs, str(work / "artifact"),
+                                       objectives=rows)
+    loaded, banks, extras = load_deployment(str(work / "artifact"))
+    pack_s = time.perf_counter() - t0
+    digest = durable_io.tree_digest({"banks": banks, "extras": extras})
+    emit({"phase": "resume", "front_from_store": {
+        "allocations": len(allocs), "equal_to_run_front":
+            keyed(allocs) == keyed(run.front),
+        "objectives": rows, "pack_and_load_s": pack_s,
+        "tree_digest": manifest["tree_digest"][:16],
+        "digest_equal": digest == manifest["tree_digest"]}})
+    if keyed(allocs) != keyed(run.front):
+        raise AssertionError(f"front_from_store gave {keyed(allocs)}, the "
+                             f"run's front is {keyed(run.front)}")
+    if digest != manifest["tree_digest"] or \
+            keyed(loaded["allocs"]) != keyed(allocs):
+        raise AssertionError("the packed front does not round-trip")
     return counts
 
 
@@ -1424,17 +1774,18 @@ def main() -> int:
         fail("no CUDA device is present; this script measures the card")
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"the port's sources are missing under {SRC}")
-    sys.path.insert(0, str(SRC))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    configure_torch()
     dev = torch.device("cuda")
 
     smi_line = phase_setup()
     max_err = phase_kernels(dev)
-    counts, target = phase_main_path(dev)
-    for path_counts in (phase_beacon_search(dev, target), phase_lm_serve(dev),
-                        phase_front_serve(dev, target)):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        work = Path(tmp)
+        counts, target = phase_main_path(dev, work)
+        beacon_counts, run = phase_beacon_search(dev, target, work)
+        paths = [beacon_counts, phase_resume(target, work, run)]
+    paths += [phase_lm_serve(dev), phase_front_serve(dev, target)]
+    for path_counts in paths:
         counts = {k: counts[k] + path_counts[k] for k in counts}
     kernels = phase_timing(dev, max_err, counts, smi_line, target)
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -1452,4 +1803,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-child"]:
+        sys.exit(resume_child(json.loads(sys.argv[2])))
     sys.exit(main())

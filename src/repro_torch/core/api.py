@@ -10,8 +10,6 @@ Differences from the reference:
 
 - no device mesh: the population axis runs on one device, so
   ``mesh``/``partition`` are gone from every signature;
-- ``checkpoint_dir``/``resume`` raise ``NotImplementedError`` until the
-  checkpoint store is ported (ROADMAP queue 1, "Checkpoint and resume");
 - the deprecated ``sru_experiment`` shims are not carried over.
 
 The SearchTarget contract
@@ -60,6 +58,7 @@ from dataclasses import dataclass
 from typing import (Any, Dict, List, Optional, Protocol, Sequence, Tuple,
                     Union, runtime_checkable)
 
+from repro_torch.core import checkpointing as ckpt
 from repro_torch.core.beacon import BeaconSearch
 from repro_torch.core.hardware import (HardwareModel, get_platform,
                                        list_platforms)
@@ -155,6 +154,9 @@ class SearchResult:
     problem: MOHAQProblem
     result: MOHAQResult
     beacon_search: Optional[BeaconSearch] = None
+    # AsyncSaver.stats for checkpointed runs (foreground/worker-CPU/drain
+    # seconds + save count); None when the run was not checkpointed
+    checkpoint_stats: Optional[dict] = None
 
     @property
     def pareto(self):
@@ -213,14 +215,43 @@ class SearchSession:
             distance_threshold: float = 6.0, log=None,
             batched: Optional[bool] = None,
             checkpoint_dir: Optional[str] = None,
+            checkpoint_every: int = 1,
             resume: bool = False) -> SearchResult:
         """Run the search (paper Fig. 4). ``beacons=True`` switches to the
         retraining-aware Algorithm-1 search — requires the target to
-        support retraining (``supports_retrain`` / ``beacon_retrainer``)."""
-        if checkpoint_dir is not None or resume:
-            raise NotImplementedError(
-                "checkpointed search is not ported yet (ROADMAP queue 1, "
-                "item 7: Checkpoint and resume)")
+        support retraining (``supports_retrain`` / ``beacon_retrainer``).
+
+        Crash safety: ``checkpoint_dir`` persists the full search state
+        (population, history, error memo, beacons) to a
+        ``core.checkpointing.SearchStore`` every ``checkpoint_every``
+        generations (atomic, checksummed writes); ``resume=True`` loads the
+        newest loadable checkpoint for this (target, platform, menu, seed)
+        + settings and continues — the resumed final Pareto front is
+        bit-identical to the uninterrupted run (the GA's SeedSequence
+        spawn-index discipline, not a re-seed, makes this exact)."""
+        if resume and checkpoint_dir is None:
+            raise ValueError("resume=True requires checkpoint_dir")
+        store = state = key = settings = None
+        if checkpoint_dir is not None:
+            store = ckpt.SearchStore(checkpoint_dir)
+            key = ckpt.search_key(self.target, self.platform, seed,
+                                  sram_bytes=self.sram_override)
+            settings = {
+                "generations": int(generations), "pop": int(pop),
+                "initial": int(initial),
+                "objectives": list(self.objectives),
+                "beacons": bool(beacons),
+                "retrain_steps": int(retrain_steps) if beacons else 0,
+                "distance_threshold":
+                    float(distance_threshold) if beacons else 0.0}
+            if resume:
+                state = store.load_latest(
+                    key, settings,
+                    params_template=getattr(self.target, "params", None))
+                if log and state is not None:
+                    log(f"resumed from checkpoint: {state.next_gen} "
+                        f"generation(s) done, {len(state.history)} evals, "
+                        f"{state.n_retrains} retrains")
         prob = self.build_problem()
         bs = None
         if beacons:
@@ -232,12 +263,41 @@ class SearchSession:
                     "with beacons=False")
             bs = BeaconSearch.from_target(
                 prob, self.target, retrain_steps=retrain_steps,
-                batched=self.batched, distance_threshold=distance_threshold)
+                batched=self.batched, distance_threshold=distance_threshold,
+                skip_retrains=state.n_retrains if state is not None else 0)
             prob = bs.attach()
-        res = run_search(prob, n_generations=generations, pop_size=pop,
-                         initial_pop_size=initial, seed=seed, log=log,
-                         batched=batched)
-        return SearchResult(self.target, prob, res, bs)
+        resume_state = None
+        if state is not None:
+            ckpt.restore_into(state, prob, bs)
+            resume_state = state.ga_resume()
+        on_generation = saver = None
+        if store is not None:
+            final_prob, final_bs = prob, bs
+            # persistence overlaps the next generation's compute: capture
+            # copies only the new history suffix (and new beacons, to the
+            # host) on this thread, the incremental encode + durable write
+            # happen on the saver's worker (FIFO-ordered, drained before
+            # run returns)
+            saver = ckpt.AsyncSaver(store, key, settings)
+
+            def on_generation(ga_state):
+                g = ga_state["next_gen"]
+                if g % max(1, checkpoint_every) == 0 or g == generations:
+                    saver.save(ga_state, final_prob, final_bs)
+        try:
+            res = run_search(prob, n_generations=generations, pop_size=pop,
+                             initial_pop_size=initial, seed=seed, log=log,
+                             batched=batched, on_generation=on_generation,
+                             resume_state=resume_state)
+        except BaseException:
+            if saver is not None:
+                saver.abort()   # already unwinding; don't mask this error
+            raise
+        if saver is not None:
+            saver.close()       # final write durable before run() returns
+        return SearchResult(self.target, prob, res, bs,
+                            checkpoint_stats=(dict(saver.stats)
+                                              if saver else None))
 
 
 # --------------------------------------------------------- result rendering

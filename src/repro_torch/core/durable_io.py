@@ -1,25 +1,32 @@
-"""Durable files and tree digests for the deployment artifact.
+"""Durable files and tree digests for every on-disk artifact of the port.
 
-Port of the parts of the reference package's ``core/durable_io.py`` that
-the artifact's writer and reader use; the file format and the digest are
-the same, so either package reads what the other wrote:
+Port of the reference package's ``core/durable_io.py``. The deployment
+artifact (``serving.convert``), the search checkpoints
+(``core.checkpointing``) and the training checkpoints
+(``training.checkpoint``) write through it. The file format and the digest
+are the reference's, so either package reads what the other wrote:
 
 - ``atomic_write_bytes``: tmp file + data sync + ``os.replace`` + parent
-  directory fsync;
+  directory fsync. A crash at any point leaves the previous file intact
+  or the new one complete; a torn tmp file is swept by the next save;
 - ``write_checksummed``/``read_checksummed``: a one-line header
   (``REPRO-CKPT1 <sha256> <length>``) in front of the payload, verified on
-  read (``CorruptFileError`` on any mismatch);
-- ``flatten_tree``/``tree_digest`` over nested dicts (and lists or tuples)
-  of tensors or numpy arrays, with ``/``-joined keys. ``tree_digest``
-  equals the reference's for the same tree.
+  read (``CorruptFileError`` on any mismatch), so callers fall back to the
+  previous good generation instead of loading garbage;
+- ``flatten_tree``/``unflatten_like``/``tree_digest`` over nested dicts
+  (and lists or tuples) of tensors or numpy arrays, with ``/``-joined keys.
+  ``tree_digest`` equals the reference's for the same tree.
 
-Checkpointing (the reference's torn-write fault hook, ``unflatten_like``,
-``sweep_tmp_files``) waits for ROADMAP.md queue 1, item 7.
+Fault-injection hook: ``REPRO_CKPT_CRASH_AFTER_TMP=K`` makes the K-th
+``write_checksummed`` call of the process SIGKILL it after the tmp file is
+written and before the rename: the torn write that the kill-and-resume
+tests recover from.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import signal
 from typing import Any, Dict
 
 import numpy as np
@@ -28,10 +35,14 @@ SEP = "/"
 
 _MAGIC = b"REPRO-CKPT1"
 
+# countdown of the torn-write fault hook, read from the environment at the
+# first write so that a child process can arm it per run
+_crash_countdown = None
+
 
 class CorruptFileError(RuntimeError):
     """A durable file failed its integrity check (torn write, truncation,
-    bit rot)."""
+    bit rot). Callers fall back to the previous good copy."""
 
 
 def sha256_bytes(data: bytes) -> str:
@@ -63,11 +74,28 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
     fsync_dir(os.path.dirname(path))
 
 
+def _maybe_crash_after_tmp() -> None:
+    """Torn-write fault hook (see the module docstring): SIGKILL with the
+    tmp file on disk and the rename never issued."""
+    global _crash_countdown
+    if _crash_countdown is None:
+        _crash_countdown = int(os.environ.get("REPRO_CKPT_CRASH_AFTER_TMP",
+                                              0) or 0)
+    if _crash_countdown <= 0:
+        return
+    _crash_countdown -= 1
+    if _crash_countdown == 0:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
 def write_checksummed(path: str, payload: bytes, *,
                       sync: bool = True) -> None:
     """Atomically write ``header + payload``; the header carries the
     payload's sha256 and length. ``sync=False`` skips the data and directory
-    syncs (atomicity and the checksum are unaffected)."""
+    syncs, deferring power-loss durability to a later
+    ``fsync_path``/``fsync_dir`` (one seal per search). Atomicity and the
+    checksum are unaffected, and process death never needs a sync: the
+    page cache survives it."""
     header = b"%s %s %d\n" % (_MAGIC, sha256_bytes(payload).encode(),
                               len(payload))
     path = os.path.abspath(path)
@@ -81,9 +109,20 @@ def write_checksummed(path: str, payload: bytes, *,
             _fdatasync(fd)
     finally:
         os.close(fd)
+    _maybe_crash_after_tmp()
     os.replace(tmp, path)
     if sync:
         fsync_dir(os.path.dirname(path))
+
+
+def fsync_path(path: str) -> None:
+    """Flush an already-written file's data to stable storage (the seal
+    half of ``write_checksummed(..., sync=False)``)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        _fdatasync(fd)
+    finally:
+        os.close(fd)
 
 
 def read_checksummed(path: str) -> bytes:
@@ -106,6 +145,22 @@ def read_checksummed(path: str) -> bytes:
     if sha256_bytes(payload) != parts[1].decode():
         raise CorruptFileError(f"{path}: sha256 mismatch")
     return payload
+
+
+def sweep_tmp_files(directory: str) -> int:
+    """Delete leftover ``*.tmp-<pid>`` files of crashed writers; returns
+    the count removed. Safe concurrently: live writers use their own pid."""
+    removed = 0
+    if not os.path.isdir(directory):
+        return removed
+    for name in os.listdir(directory):
+        if ".tmp-" in name:
+            try:
+                os.remove(os.path.join(directory, name))
+                removed += 1
+            except FileNotFoundError:
+                pass   # another sweeper got it first; nothing to clean
+    return removed
 
 
 # ------------------------------------------------------- tree <-> flat
@@ -133,6 +188,47 @@ def flatten_tree(tree) -> Dict[str, Any]:
     return flat
 
 
+def _map_like(template, fn, path=()):
+    """``template``'s nested dicts / lists / tuples with each leaf replaced
+    by ``fn(path, leaf)``; ``None`` stays an empty subtree."""
+    if template is None:
+        return None
+    if isinstance(template, dict):
+        return {k: _map_like(v, fn, path + (str(k),))
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_map_like(v, fn, path + (str(i),))
+                              for i, v in enumerate(template))
+    return fn(path, template)
+
+
+def _leaf_like(leaf, arr: np.ndarray):
+    """``arr`` in the form of the template ``leaf``: a tensor with its dtype
+    on its device, or (a numpy leaf) the array itself. Void arrays (how
+    ``np.savez`` and the frame container store bfloat16) are re-viewed with
+    the leaf's dtype."""
+    if not hasattr(leaf, "detach"):                  # a numpy template leaf
+        if arr.dtype.kind == "V":
+            arr = arr.view(np.dtype(leaf.dtype))
+        return arr
+    import torch
+    if arr.dtype.kind == "V":                        # raw bf16 bytes
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(
+            np.dtype(f"i{arr.dtype.itemsize}")).copy()).view(leaf.dtype)
+    else:
+        t = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+    return t.to(device=leaf.device, dtype=leaf.dtype)
+
+
+def unflatten_like(template, flat: Dict[str, np.ndarray]):
+    """Rebuild ``template``'s nested structure from a ``flatten_tree``-keyed
+    dict of host arrays. Where a template leaf is a tensor the rebuilt leaf
+    is a tensor with that leaf's dtype on that leaf's device."""
+    def rebuild(path, leaf):
+        return _leaf_like(leaf, np.asarray(flat[SEP.join(path)]))
+    return _map_like(template, rebuild)
+
+
 def leaf_array(leaf) -> np.ndarray:
     """A leaf (tensor, array or scalar) as a host numpy array; bf16 tensors
     become ``ml_dtypes.bfloat16`` arrays, as a JAX bf16 array does."""
@@ -140,6 +236,13 @@ def leaf_array(leaf) -> np.ndarray:
         from repro_torch.models.common import tensor_to_numpy
         return tensor_to_numpy(leaf)
     return np.asarray(leaf)
+
+
+def host_tree(tree):
+    """``tree`` with every leaf copied to a host numpy array
+    (``leaf_array``), the structure kept: a snapshot that a writer thread
+    can read while the device goes on."""
+    return _map_like(tree, lambda path, leaf: leaf_array(leaf))
 
 
 def tree_digest(tree) -> str:

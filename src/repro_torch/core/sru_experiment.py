@@ -6,8 +6,9 @@ arrays — cfg, params, validation/test sets, activation ranges, MMSE weight
 clips and weight ranges — so a test can hand it exactly the reference's
 arrays. ``train_small_sru`` trains a Bi-SRU on synthetic speech and
 calibrates it; the target retrains beacons (``beacon_retrainer``) for the
-beacon-based search. ``build_untrained_sru`` makes a calibrated target
-from random weights, the same recipe without the training loop.
+beacon-based search. ``target_from_params`` calibrates and wraps given
+params (those of a training checkpoint), ``build_untrained_sru`` random
+ones: the same recipe without the training loop.
 """
 from __future__ import annotations
 
@@ -222,10 +223,17 @@ def calibrated_target(cfg: SRUModelConfig, params, task, val_subsets,
     return target
 
 
-def _eval_target(cfg: SRUModelConfig, params, task, device) -> TrainedSRU:
-    """``params`` calibrated and wrapped with the synthetic task's
-    evaluation sets: 4 validation subsets of 8 sequences of 48 frames and a
-    test set of 32 sequences."""
+def target_from_params(cfg: SRUModelConfig, params, *,
+                       device="cuda") -> TrainedSRU:
+    """``params`` (trained, or restored from a training checkpoint)
+    calibrated and wrapped with the synthetic task's evaluation sets, as
+    ``train_small_sru`` wraps what it trains: 4 validation subsets of 8
+    sequences of 48 frames and a test set of 32 sequences. Deterministic,
+    so a second process that restores the same params builds the same
+    target (the same ``checkpointing.target_fingerprint``, ranges, clips
+    and errors)."""
+    task = synthetic.SpeechTask(input_dim=cfg.input_dim,
+                                n_states=cfg.n_outputs)
     raw_subsets, raw_test = synthetic.speech_eval_sets(
         task, batch=4, seq=48, device=device)
 
@@ -275,28 +283,14 @@ def train_small_sru(steps: int = 400, *, cfg: SRUModelConfig = SEARCH_CFG,
             log(i, loss)
         if verbose and (i + 1) % 50 == 0:
             print(f"  [sru-train] step {i+1}/{steps} loss {float(loss):.3f}")
-    return _eval_target(cfg, params, task, device)
+    return target_from_params(cfg, params, device=device)
 
 
 def build_untrained_sru(cfg: SRUModelConfig, *, seed: int = 0,
                         device="cuda") -> TrainedSRU:
-    """A calibrated target with random weights drawn from ``seed`` and the
-    synthetic speech task's evaluation sets, as the reference's
-    ``train_small_sru`` builds them minus training: 4 validation subsets of
-    8 sequences of 48 frames and a test set of 32 sequences. Its errors are
-    those of an untrained model."""
-    task = synthetic.SpeechTask(input_dim=cfg.input_dim,
-                                n_states=cfg.n_outputs)
+    """A calibrated target with random weights drawn from ``seed``
+    (``target_from_params`` on untrained weights). Its errors are those of
+    an untrained model."""
     params = sru.init_params(torch.Generator().manual_seed(seed), cfg,
                              device=device)
-    raw_subsets, raw_test = synthetic.speech_eval_sets(
-        task, batch=4, seq=48, device=device)
-
-    def stack(bs):
-        return (torch.cat([b["feats"] for b in bs]),
-                torch.cat([b["labels"] for b in bs]))
-
-    subsets = [stack(s) for s in raw_subsets]
-    test = [stack(raw_test)]
-    cal_feats = [b["feats"] for s in raw_subsets for b in s]
-    return calibrated_target(cfg, params, task, subsets, test, cal_feats)
+    return target_from_params(cfg, params, device=device)

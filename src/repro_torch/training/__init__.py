@@ -1,2 +1,3 @@
-"""Training for the port: AdamW with its schedules (``optimizer``) and the
-binary-connect retraining of beacons (``qat``)."""
+"""Training for the port: AdamW with its schedules (``optimizer``), the
+binary-connect retraining of beacons (``qat``) and training checkpoints
+(``checkpoint``)."""

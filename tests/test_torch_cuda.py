@@ -7,6 +7,8 @@ training forward and retraining on the card against the CPU.
 Every test is marked ``gpu`` and skips where no CUDA device is present.
 The file imports no JAX, so it runs on a machine that has only PyTorch:
 ``python -m pytest -m gpu tests/test_torch_cuda.py``."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -372,3 +374,63 @@ def test_training_forward_and_retrain_on_the_card(dev):
             for k in ("v", "b"):
                 assert torch.equal(beacon[f"L{i}"][d][k],
                                    on_card[f"L{i}"][d][k])
+
+
+def test_checkpointed_beacon_search_resumes_on_the_card(dev, tmp_path):
+    """A beacon search on the card, checkpointed, cut back to the first
+    generation that holds a retrain and resumed in-process: the same
+    front, evaluations, retrains and beacon digests as the uninterrupted
+    run, the restored beacons' params on the card."""
+    from repro_torch.core import checkpointing as ckpt
+    from repro_torch.core import durable_io as dio
+    from repro_torch.core import sru_experiment as X
+    from repro_torch.core.api import SearchSession
+    from repro_torch.core.hardware import get_platform
+    from repro_torch.models import sru
+    cfg = sru.SRUModelConfig(name="tiny", input_dim=5, hidden=8, proj=6,
+                             n_sru_layers=3, n_outputs=7)
+    target = X.train_small_sru(60, cfg=cfg, batch=4, seq=24, device=dev)
+    sram = int((sum(target.layer_weights.values()) * 8.0
+                + target.vector_weights * 16) / 8)
+    kw = dict(generations=4, pop=6, initial=8, seed=0, beacons=True,
+              retrain_steps=3, distance_threshold=4.0)
+
+    def session():
+        return SearchSession(target, "bitfusion", ("error", "speedup"),
+                             sram_override=sram)
+
+    def digests(res):
+        return [dio.tree_digest(b.params) for b in res.beacon_search.beacons]
+
+    want = session().run(**kw)
+    d = str(tmp_path / "store")
+    full = session().run(checkpoint_dir=d, **kw)
+    assert full.front_key() == want.front_key()
+    assert digests(full) == digests(want)
+    assert want.beacon_search.n_retrains >= 1
+    key = ckpt.search_key(target, get_platform("bitfusion"), 0,
+                          sram_bytes=sram)
+    settings = {"generations": 4, "pop": 6, "initial": 8,
+                "objectives": ["error", "speedup"], "beacons": True,
+                "retrain_steps": 3, "distance_threshold": 4.0}
+    store = ckpt.SearchStore(d)
+
+    def retrains_at(g):
+        path = os.path.join(store.dir_for(key, settings),
+                            f"gen_{g:05d}.ckpt")
+        state, _ = ckpt.deserialize_state(dio.read_checksummed(path),
+                                          target.params)
+        return state.n_retrains
+    cut = min(g for g in store.generations(key, settings)
+              if retrains_at(g) >= 1)
+    assert cut < kw["generations"]
+    store.discard_after(key, settings, cut)
+    mid = store.load_latest(key, settings, target.params)
+    assert mid.next_gen == cut
+    assert all(leaf.device.type == dev.type for p in mid.beacon_params
+               for leaf in dio.flatten_tree(p).values())
+    got = session().run(checkpoint_dir=d, resume=True, **kw)
+    assert got.front_key() == want.front_key()
+    assert got.n_evals == want.n_evals
+    assert got.beacon_search.n_retrains == want.beacon_search.n_retrains
+    assert digests(got) == digests(want)

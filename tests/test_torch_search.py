@@ -3,8 +3,8 @@ error counts of the scalar path and of the population evaluator (f32 banks,
 packed banks, requantizing lanes), and the Pareto fronts of
 ``SearchSession`` on the paper's experiments 1, 2 and 3 (inference-only),
 on the reference's own arrays (see ``test_torch_sru.reference_target``).
-Also the evaluator's fault hooks and the parts of the search surface that
-wait for later ports."""
+Also the evaluator's fault hooks and the search surface's argument
+checks."""
 import dataclasses
 
 import numpy as np
@@ -120,12 +120,14 @@ def test_search_fronts_equal(pair, platform):
 
 
 def test_search_surface_waiting_for_later_ports(pair):
-    """Checkpointed search waits for its port; beacons need a target that
-    retrains, and one whose ``supports_retrain`` is false still raises."""
+    """The reference's contract for checkpointed runs: ``resume=True``
+    without a ``checkpoint_dir`` raises ``ValueError``. Beacons need a
+    target that retrains, and one whose ``supports_retrain`` is false
+    still raises."""
     _, port = pair
     sess = TA.SearchSession(port, "bitfusion", ("error", "speedup"))
-    with pytest.raises(NotImplementedError, match="Checkpoint"):
-        sess.run(generations=1, pop=2, initial=2, checkpoint_dir="ckpt")
+    with pytest.raises(ValueError, match="checkpoint_dir"):
+        sess.run(generations=1, pop=2, initial=2, resume=True)
     frozen = dataclasses.replace(port)
     frozen.supports_retrain = False
     with pytest.raises(NotImplementedError, match="retrain"):
