@@ -87,7 +87,24 @@ Phases, each printing JSON lines:
    test holds the scalar forward with its MxVs on ``torch.matmul`` against
    the scalar forward as it runs. Reported: the share of chunks bitwise
    equal, frames/s, continuous vs serial dispatches;
-8. timing: each kernel, its plain version and the PyTorch library call
+8. xlstm_search: the xLSTM search target at full xlstm-350m width and
+   depth (``configs/xlstm_350m.py``: 24 layers, d_model 1024, 25
+   searchable layers, 353.6 M searchable weights, 5.66 GB of f32 banks),
+   trained on the card by ``train_small_xlstm`` (200 steps of 512 x 17
+   tokens of the bigram task; the phase fails on a non-finite loss or one
+   that does not fall), validated on 4 subsets of 4 x 64 tokens; the
+   inference-only search (bitfusion, (error, speedup), 2 generations of 10
+   with 40 in generation 0, an SRAM that holds any allocation) with every
+   quantized MxV on ``bank_mxv_pop`` (which must launch); on generation
+   0's candidates the kernel lane against the plain lane
+   (``compare_xlstm_lanes``: every layer's MxV on the path's inputs within
+   rtol 1e-4 / atol 1e-3, each lane's first divergence, argmax flips only
+   below the lane's logit gap, a lane flip that moves no other lane); then
+   the beacon search, with one retrain at full width where the search
+   retrains none. Printed: the training curve, the generation sizes and
+   seconds, ``n_evals``, fronts, retrain seconds, each beacon's error
+   under the base and its own params, and peak memory;
+9. timing: each kernel, its plain version and the PyTorch library call
    (CUDA events, after warm-up) at the main paths' shapes and at the
    serving shapes; for the bank kernels the median and range of 5 repeats
    beside ``torch.bmm`` with and without its ``index_select`` gather and
@@ -98,13 +115,15 @@ Phases, each printing JSON lines:
    (``cuda_ms_stats``, which a short kernel's host work can outlast); the
    scalar forward with its MxVs on ``bank_mxv_pop`` and on
    ``torch.matmul``, one generation's evaluation per lane, and peak device
-   memory. In the
+   memory; ``bank_mxv_pop`` at the xLSTM's shapes beside ``torch.bmm``
+   with its ``index_select`` (``time_xlstm_mxvs``). In the
    ``kernels`` line the scans' and ``quant_matmul``'s ``ms`` are graph
    device times and ``host_ms`` the event-timed call (``ms_from`` says
    which).
 
-Each path (3, 4, 5, 6, 7) runs with the launch counts set to 0 just before
-it and read just after (phase 5: in the resumed child, around its search);
+Each path (3, 4, 5, 6, 7, 8) runs with the launch counts set to 0 just
+before it and read just after (phase 5: in the resumed child, around its
+search; phase 8: around each of its two searches);
 the ``kernels`` line's ``launches`` add up those reads.
 The last line is ``{"ok": true, "device": {...}}``; a failed phase raises
 and the script exits non-zero. It exits non-zero, printing no result, where
@@ -173,6 +192,30 @@ SLOS = ("premium", "standard", "economy")
 TRAIN_STEPS = 400             # train_small_sru's default (the reference's)
 BEACON_STEPS = 60             # retraining steps a beacon (paper experiment 3)
 SEARCH_KW = dict(generations=2, pop=10, initial=40, seed=0)
+# the xLSTM search target at full xlstm-350m width and depth: its training
+# (steps of batch x seq tokens, AdamW at a constant lr after 10 warm-up
+# steps, TF32 products; xlstm_train_probe.py chose it, PERF.md), the
+# baseline val error it must reach, validation (4 subsets of batch x seq
+# next-token frames), retraining steps a beacon (20, not the SRU's 60: a
+# full-width retrain step takes ~0.6 s and the search may place 8
+# beacons), the lanes a comparison holds at once, and the beacon distance
+# threshold (the paper's 6 for the SRU's 6 searchable layers, scaled to
+# the xLSTM's 25)
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_TRAIN = dict(steps=240, batch=4096, seq=3, lr=1e-3,
+                   schedule="constant", tf32=True)
+XLSTM_BASELINE_BAR = 90.0
+XLSTM_VAL = dict(val_batch=4, val_seq=64)
+XLSTM_RETRAIN_STEPS = 20
+XLSTM_LANES = 16
+XLSTM_DISTANCE = 25.0
+# bank_mxv_pop at the xLSTM's MxV shapes, (P, M, m, N) and bank rows: P = 64
+# lanes of 1,024 folded frames; the sLSTM's recurrent MxV runs P x H lanes
+# of the 16 folded sequences against the (K x H, dh, 4 dh) bank view
+XLSTM_MXV_SHAPES = {"fc": ((64, 1024, 1024, 2048), 4),
+                    "wx": ((64, 1024, 1024, 8192), 4),
+                    "head": ((64, 1024, 1024, 50432), 4),
+                    "rec": ((256, 16, 512, 2048), 16)}
 TRAINED_DIR = "trained"       # the training checkpoint, under the work dir
 STORE_DIR = "search_store"    # the uninterrupted beacon run's SearchStore
 CHILD_TIMEOUT_S = 600
@@ -1532,6 +1575,425 @@ def phase_front_serve(dev, target):
     return counts
 
 
+# ------------------------------------------------------------------ xLSTM
+
+def train_xlstm(dev, cfg):
+    """The xLSTM search target: ``cfg`` trained on the card by
+    ``train_small_xlstm`` (``XLSTM_TRAIN``: 240 steps of 4,096 x 3 bigram
+    tokens, two labelled frames a row, at a constant lr 1e-3 with TF32
+    products), calibrated on ``XLSTM_VAL``'s validation tokens (4 x 64, TF32
+    off). Emits the loss at ten points, the median step, the seconds and
+    the baseline errors; raises on a non-finite loss or a baseline val
+    error not below ``XLSTM_BASELINE_BAR`` (an untrained model scores
+    ~100 %, and every candidate with it)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import xlstm_target as XT
+    losses, stamps = [], []
+
+    def log(step, loss):
+        losses.append(float(loss))            # waits for the step
+        stamps.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    target = XT.train_small_xlstm(cfg=cfg, device=dev, log=log,
+                                  **XLSTM_TRAIN, **XLSTM_VAL)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    step_ms = np.diff([t0] + stamps) * 1e3
+    every = max(1, len(losses) // 10)
+    emit({"phase": "xlstm_search", "training": {
+        "model": cfg.name, **XLSTM_TRAIN, "n_noise": XT.N_NOISE,
+        "loss_every": {i + 1: losses[i] for i in
+                       range(every - 1, len(losses), every)},
+        "step_ms_median": float(np.median(step_ms)),
+        "step_ms_range": [float(step_ms.min()), float(step_ms.max())],
+        "train_s": stamps[-1] - t0, "train_and_calibrate_s": total_s,
+        "baseline_val_error": target.baseline_val_error,
+        "baseline_test_error": target.baseline_test_error,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}})
+    if not np.isfinite(losses).all():
+        raise AssertionError("xLSTM training produced a non-finite loss")
+    if not target.baseline_val_error < XLSTM_BASELINE_BAR:
+        raise AssertionError(f"the trained xLSTM's baseline val error "
+                             f"{target.baseline_val_error} % is not below "
+                             f"{XLSTM_BASELINE_BAR} %")
+    return target
+
+
+@contextlib.contextmanager
+def checking_bank_mxvs(banks, out):
+    """While open, every ``bank_mxv_pop`` call is held to its plain version
+    on the same inputs (rtol 1e-4 / atol 1e-3): the path's own
+    activations, every leaf's bank and the lanes' menu indices, the
+    sLSTM's recurrent MxV at every time step included. ``out`` maps
+    ``"{layer}.{leaf}"`` to the largest abs error of that leaf's calls; a
+    call is told to its leaf by its bank's storage (the recurrent bank is
+    a view of ``banks[layer]["r"]``)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    owner = {b.data_ptr(): f"{name}.{key}" for name, layer in banks.items()
+             for key, b in layer.items()}
+    assert len(owner) == sum(len(layer) for layer in banks.values())
+    real = ops.bank_mxv_pop
+
+    def check(x, bank, idx):
+        got = real(x, bank, idx)
+        want = ref.bank_mxv_pop_ref(x, bank, idx)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+        leaf = owner[bank.data_ptr()]
+        out[leaf] = max(out.get(leaf, 0.0), errs(got, want)[0])
+        return got
+
+    # the wrapper counts through its module-level name, so the stand-in
+    # holds the count while it stands in; its launches are not added back
+    # (a comparison's launches do not count)
+    check.launches = real.launches
+    ops.bank_mxv_pop = check
+    try:
+        yield
+    finally:
+        ops.bank_mxv_pop = real
+
+
+@contextlib.contextmanager
+def float64_plain_mxvs():
+    """While open, the plain lane's MxV (``ref.bank_mxv_pop_ref``) sums in
+    float64 and rounds once to float32: a third summation order, nearer the
+    exact sum than either float32 lane."""
+    import torch
+    from repro_torch.kernels import ref
+    plain = ref.bank_mxv_pop_ref
+
+    def f64(x, bank, idx):
+        return torch.bmm(x.double(),
+                         bank.index_select(0, idx.long()).double()).float()
+
+    ref.bank_mxv_pop_ref = f64
+    try:
+        yield
+    finally:
+        ref.bank_mxv_pop_ref = plain
+
+
+def compare_xlstm_lanes(target, allocs):
+    """The kernel lane against the plain lane (both on the same f32 banks)
+    on ``allocs``, ``XLSTM_LANES`` lanes at a time, with the block inputs
+    of both recorded. Per lane: the error % of each lane, whether its block
+    inputs stayed bitwise equal (then its logits must agree within rtol
+    1e-4 / atol 1e-3: only the head's f32 MxV differs) or the first layer
+    where they differ and by how much there, relative to that input's
+    largest |value|. Upstream of it both lanes fed bitwise-equal inputs to
+    products that differ only in summation order (each MxV is held to its
+    plain version on the path's inputs), and a bf16 cast of the two sums
+    can fall one step apart; the untrained model turns a step that small
+    into different logits (PERF.md), so a lane is not held to the
+    tolerance after its first divergence, but there its inputs must agree
+    within one bf16 step of the input's largest |value| (2^-7 of it).
+    Every frame whose argmax differs must have a plain top-2 margin below
+    its lane's logit gap. A witness lane, the plain lane with every MxV
+    summed in float64 (``float64_plain_mxvs``), is scored against the
+    plain lane the same way (``float64_vs_plain``): how far a third
+    summation order, and no kernel, moves the errors.
+    Also every MxV call of the first chunk's kernel lane against its plain
+    version on the same inputs (``checking_bank_mxvs``) and the lane flip: a changed allocation in lane 0
+    moves no other lane's logits. Returns the readings."""
+    import torch
+    from repro_torch.core import xlstm_target as XT
+    ev = target.batched_evaluator()
+    banks = ev._banks_for(target.params)
+    toks, labels = ev._feats_all, ev._labels_all
+    names = target.layer_names
+    path = {}
+    st = {"lanes": 0, "lanes_inputs_equal": 0, "lanes_logits_close": 0,
+          "first_divergence_layers": {}, "max_first_divergence_rel": 0.0,
+          "frames": 0, "frames_differ": 0, "differing_frame_margins": [],
+          "max_lane_gap": 0.0, "differing_frames_at_margin_0": 0,
+          "max_differing_margin": 0.0,
+          "error_pct": {"kernel": [], "plain": [], "float64": []},
+          "float64_frames_differ": 0}
+
+    def err(pred):
+        wrong = (pred != labels[None]).reshape(pred.shape[0],
+                                              ev._n_subsets, -1)
+        return (100.0 * wrong.sum(-1).double() / wrong.shape[-1]
+                ).max(-1).values.tolist()
+
+    for c in range(0, len(allocs), XLSTM_LANES):
+        chunk = allocs[c:c + XLSTM_LANES]
+        stack = ev._stack(chunk)[:len(chunk)]
+        runs = {}
+        for lane, uk in (("kernel", True), ("plain", False)):
+            runs[lane] = [{"acts": []}]
+            with contextlib.ExitStack() as hooks:
+                hooks.enter_context(recording_act_quant(runs[lane]))
+                if uk and c == 0:
+                    hooks.enter_context(checking_bank_mxvs(banks, path))
+                runs[lane][0]["logits"] = XT.forward_population(
+                    target.params, target.cfg, toks, stack, banks=banks,
+                    use_kernel=uk)
+        with float64_plain_mxvs():
+            l64 = XT.forward_population(target.params, target.cfg, toks,
+                                        stack, banks=banks, use_kernel=False)
+        torch.cuda.synchronize()
+        lk, lp = runs["kernel"][0]["logits"], runs["plain"][0]["logits"]
+        st["error_pct"]["float64"] += err(l64.argmax(-1))
+        st["float64_frames_differ"] += int(
+            (l64.argmax(-1) != lp.argmax(-1)).sum())
+        del l64
+        if c == 0:
+            st["path_mxv_max_abs_err"] = path
+            flipped = [{n: ((2, 2) if a != (2, 2) else (16, 16))
+                        for n, a in chunk[0].items()}] + chunk[1:]
+            other = XT.forward_population(
+                target.params, target.cfg, toks,
+                ev._stack(flipped)[:len(chunk)], banks=banks,
+                use_kernel=True)
+            st["lane_flip"] = {
+                "lane0_moved": not torch.equal(other[0], lk[0]),
+                "others_bitwise_equal": bool(torch.equal(other[1:], lk[1:]))}
+            if not st["lane_flip"]["others_bitwise_equal"]:
+                raise AssertionError("changing lane 0's allocation moved "
+                                     "another lane's logits")
+            del other
+        st["error_pct"]["kernel"] += err(lk.argmax(-1))
+        st["error_pct"]["plain"] += err(lp.argmax(-1))
+        differ = lk.argmax(-1) != lp.argmax(-1)
+        top2 = torch.topk(lp, 2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        gap = (lk - lp).abs().flatten(1).max(1).values
+        for p in range(len(chunk)):
+            st["lanes"] += 1
+            g = float(gap[p])
+            st["max_lane_gap"] = max(st["max_lane_gap"], g)
+            m = margin[p][differ[p]]
+            st["frames"] += differ[p].numel()
+            st["frames_differ"] += int(differ[p].sum())
+            st["differing_frame_margins"] += m.tolist()
+            st["differing_frames_at_margin_0"] += int((m == 0).sum())
+            if m.numel():
+                st["max_differing_margin"] = max(st["max_differing_margin"],
+                                                 float(m.max()))
+            if (m >= g).any():
+                raise AssertionError(f"lane {c + p}: an argmax differs at a "
+                                     f"plain margin >= its gap {g}")
+            st["lanes_logits_close"] += int(torch.allclose(
+                lk[p], lp[p], rtol=1e-4, atol=1e-3))
+            first = next((j for j, (a, b) in enumerate(zip(
+                runs["kernel"][0]["acts"], runs["plain"][0]["acts"]))
+                if not torch.equal(a[0][p], b[0][p])), None)
+            if first is None:
+                st["lanes_inputs_equal"] += 1
+                torch.testing.assert_close(lk[p], lp[p], rtol=1e-4,
+                                           atol=1e-3)
+                continue
+            if first == 0:            # precedes every MxV of the forward
+                raise AssertionError(f"lane {c + p}: the first layer's "
+                                     f"inputs differ between the lanes")
+            xa = runs["kernel"][0]["acts"][first][0][p].float()
+            xb = runs["plain"][0]["acts"][first][0][p].float()
+            rel = float((xa - xb).abs().max() / xa.abs().max())
+            if rel > 2.0 ** -7:
+                raise AssertionError(f"lane {c + p}: the inputs of "
+                                     f"{names[first]} first part by {rel} "
+                                     f"of their range, over a bf16 step")
+            st["first_divergence_layers"][names[first]] = \
+                st["first_divergence_layers"].get(names[first], 0) + 1
+            st["max_first_divergence_rel"] = max(
+                st["max_first_divergence_rel"], rel)
+        del runs, lk, lp
+        torch.cuda.empty_cache()
+    ek, ep = st["error_pct"]["kernel"], st["error_pct"]["plain"]
+    st["argmax_agreement"] = 1.0 - st["frames_differ"] / st["frames"]
+    st["lanes_with_error_change"] = sum(a != b for a, b in zip(ek, ep))
+    st["max_abs_error_pp"] = max(abs(a - b) for a, b in zip(ek, ep))
+    e64 = st["error_pct"]["float64"]
+    st["float64_vs_plain"] = {
+        "argmax_agreement": 1.0 - st.pop("float64_frames_differ")
+        / st["frames"],
+        "lanes_with_error_change": sum(a != b for a, b in zip(e64, ep)),
+        "max_abs_error_pp": max(abs(a - b) for a, b in zip(e64, ep))}
+    st["differing_frame_margins"] = sorted(st["differing_frame_margins"])[:20]
+    return st
+
+
+def phase_xlstm_search(dev):
+    """The xLSTM search target at full xlstm-350m width and depth: trained
+    on the card, calibrated, banks built; the inference-only search
+    (bitfusion, (error, speedup), an SRAM that holds any allocation) with
+    every quantized MxV on ``bank_mxv_pop``; the kernel lane against
+    the plain lane on generation 0's candidates; then the beacon search
+    (``XLSTM_RETRAIN_STEPS`` a beacon), with one retrain of the front's
+    fastest allocation where the search retrains none. Returns the path's
+    launch counts (the two searches)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import api
+    from repro_torch.kernels import ops
+
+    cfg = get_config(XLSTM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    target = train_xlstm(dev, cfg)
+    weights = sum(target.layer_weights.values())
+    t0 = time.perf_counter()
+    banks = target.batched_evaluator()._banks_for(target.params)
+    torch.cuda.synchronize()
+    emit({"phase": "xlstm_search", "config": cfg.name,
+          "layers": len(target.layer_names),
+          "genes": 2 * len(target.layer_names),
+          "searchable_weights": weights,
+          "head_weights": target.layer_weights["head"],
+          "vector_weights": target.vector_weights,
+          "bank_bytes": sum(b.numel() * b.element_size()
+                            for layer in banks.values()
+                            for b in layer.values()),
+          "bank_build_s": time.perf_counter() - t0,
+          "val_subsets": [list(t.shape) for t, _ in target.val_subsets]})
+    del banks
+    # an SRAM that holds the model at 16 bits, so that every allocation is
+    # feasible in memory, as Bitfusion's 2 MB holds the reference's search
+    # config (the SRU's experiment-3 bound of 3.5 bits a weight would admit
+    # almost no allocation over 25 layers)
+    sram = (weights + target.vector_weights) * 2
+    sess = api.SearchSession(target, "bitfusion", ("error", "speedup"),
+                             sram_override=sram, share_memo=False)
+    calls, evaluate = [], target.val_error_batch
+
+    def recording(allocs, params=None, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = evaluate(allocs, params, **kw)
+        calls.append((list(allocs), time.perf_counter() - t))
+        return out
+
+    target.val_error_batch = recording
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = sess.run(**SEARCH_KW)
+        torch.cuda.synchronize()
+    finally:
+        del target.val_error_batch
+    search_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rows = res.table()
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "xlstm_search", "platform": "bitfusion",
+          "sram_bytes": sram, "generation_sizes": [len(a) for a, _ in calls],
+          "generation_s": [round(t, 4) for _, t in calls],
+          "search_s": search_s, "n_evals": res.n_evals,
+          "front": front_rows(rows), "launches": counts,
+          "max_memory_allocated": peak})
+    if counts["bank_mxv_pop"] <= 0:
+        raise AssertionError(f"bank_mxv_pop was not launched by the xLSTM "
+                             f"search ({counts})")
+    if not np.isfinite([r["error"] for r in rows]
+                       + [r["test_error"] for r in rows]).all():
+        raise AssertionError(f"non-finite xLSTM front {rows}")
+
+    # generation 0's candidates on both lanes (after the counts are read)
+    allocs0 = calls[0][0]
+    emit({"phase": "xlstm_search", "kernel_vs_plain": compare_xlstm_lanes(
+        target, allocs0), "allocations": len(allocs0)})
+
+    retrain_s, retrainer = [], target.beacon_retrainer
+
+    def timed_retrainer(steps, **kw):
+        fn = retrainer(steps, **kw)
+
+        def retrain(alloc, base):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(alloc, base)
+            torch.cuda.synchronize()
+            retrain_s.append(time.perf_counter() - t)
+            return out
+        return retrain
+
+    target.beacon_retrainer = timed_retrainer
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        beacon = sess.run(beacons=True, retrain_steps=XLSTM_RETRAIN_STEPS,
+                          distance_threshold=XLSTM_DISTANCE, **SEARCH_KW)
+        torch.cuda.synchronize()
+    finally:
+        del target.beacon_retrainer
+    beacon_s = time.perf_counter() - t0
+    beacon_counts = ops.launch_counts()
+    bs = beacon.beacon_search
+    made = [(b.alloc, b.params, s) for b, s in zip(bs.beacons, retrain_s)]
+    if not made:          # the search retrained none: retrain the fastest
+        alloc = max(rows, key=lambda r: r["speedup"])["alloc"]
+        t = time.perf_counter()
+        params = target.retrain(alloc, steps=XLSTM_RETRAIN_STEPS)
+        torch.cuda.synchronize()
+        made = [(alloc, params, time.perf_counter() - t)]
+    beacons = [{"alloc": {k: list(v) for k, v in a.items()}, "retrain_s": t,
+                "error_base_params": target.val_error(a),
+                "error_beacon_params": target.val_error(a, params=p)}
+               for a, p, t in made]
+    emit({"phase": "xlstm_search", "beacon_search": {
+        "retrain_steps": XLSTM_RETRAIN_STEPS,
+        "distance_threshold": XLSTM_DISTANCE,
+        "n_retrains": bs.n_retrains, "beacons": beacons,
+        "from_session": bs.n_retrains > 0, "beacon_s": beacon_s,
+        "n_evals": beacon.n_evals, "front": front_rows(beacon.table()),
+        "launches": beacon_counts,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}})
+    values = [b[k] for b in beacons
+              for k in ("error_base_params", "error_beacon_params")]
+    if not np.isfinite(values).all():
+        raise AssertionError(f"non-finite xLSTM beacon errors {values}")
+    del target, made, bs, beacon, sess
+    torch.cuda.empty_cache()
+    return {k: counts[k] + beacon_counts[k] for k in counts}
+
+
+def time_xlstm_mxvs(dev):
+    """``bank_mxv_pop`` at the xLSTM's MxV shapes (``XLSTM_MXV_SHAPES``,
+    seeded inputs drawn on the card, rows built as the target builds them)
+    beside the library call that computes the same function, ``torch.bmm``
+    with its ``index_select`` gather: the median and range of 5 repeats
+    each, the bound and its share."""
+    import torch
+    from repro_torch.core import quantization as Q
+    from repro_torch.kernels import ops
+    rows = {}
+    for name, ((P, M, m, N), K) in XLSTM_MXV_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(30)
+        w = torch.randn((m, N), generator=g, device=dev) / m ** 0.5
+        trips = Q.menu_triples(Q.SUPPORTED_BITS, lambda b: float(
+            w.abs().max()) if b == 16 else sampled_clip(w, b))
+        bank = Q.build_weight_bank(w, trips)
+        del w
+        if K != len(Q.SUPPORTED_BITS):      # the recurrent view: K x H rows
+            bank = bank.repeat_interleave(K // bank.shape[0], dim=0)
+        x = torch.randn((P, M, m), generator=g, device=dev)
+        idx = torch.arange(P, dtype=torch.int32, device=dev) % K
+        iters = 2 if N > 10000 else 5
+        b, by = bound_ms(*mxv_cost((P, M, m, N), idx))
+        row = {"phase": "timing", "xlstm_mxv": name, "shape": [P, M, m, N],
+               "bank_rows": K, "config": ops.bank_config(P, M, N),
+               "bound_ms": b, "bound_by": by,
+               "bank_mxv_pop": cuda_ms_stats(
+                   lambda: ops.bank_mxv_pop(x, bank, idx), iters),
+               "bmm_index_select": cuda_ms_stats(
+                   lambda: torch.bmm(x, bank.index_select(0, idx.long())),
+                   iters)}
+        row["share_of_bound"] = b / row["bank_mxv_pop"]["median"]
+        row["vs_bmm"] = (row["bank_mxv_pop"]["median"]
+                         / row["bmm_index_select"]["median"])
+        emit(row)
+        rows[name] = row
+        del x, bank
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_banks(dev):
     """Both bank kernels at the search shapes (P = 16 lanes of 1536 rows)
     and the serving shapes (8 lanes of a 16-frame chunk, 4 lanes of a 7-frame
@@ -1694,6 +2156,7 @@ def phase_timing(dev, max_err, counts, smi_line, target):
     from repro_torch.kernels import ops, ref
     from repro_torch.models import sru
     profile_training(dev, target)
+    time_xlstm_mxvs(dev)
     kernels = time_scans(dev)
     bank_rows = time_banks(dev)
     for name in ("bank_mxv_pop", "bank_qmm_pop"):
@@ -1784,7 +2247,8 @@ def main() -> int:
         counts, target = phase_main_path(dev, work)
         beacon_counts, run = phase_beacon_search(dev, target, work)
         paths = [beacon_counts, phase_resume(target, work, run)]
-    paths += [phase_lm_serve(dev), phase_front_serve(dev, target)]
+    paths += [phase_lm_serve(dev), phase_front_serve(dev, target),
+              phase_xlstm_search(dev)]
     for path_counts in paths:
         counts = {k: counts[k] + path_counts[k] for k in counts}
     kernels = phase_timing(dev, max_err, counts, smi_line, target)

@@ -3,13 +3,13 @@ import importlib
 
 _MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
+    "xlstm-350m": "xlstm_350m",
     "sru_timit": "sru_timit",
 }
 
 # the reference's other architectures, and the ROADMAP.md queue-1 item that
 # ports their families
 _WAITING = {
-    "xlstm-350m": "item 8 (xLSTM)",
     "jamba-1.5-large-398b": "item 10 (hybrid Mamba/attention)",
     "granite-moe-1b-a400m": "item 10 (MoE)",
     "qwen2-moe-a2.7b": "item 10 (MoE)",

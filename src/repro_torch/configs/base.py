@@ -4,7 +4,8 @@ Copy of ``ArchConfig`` from the reference package's ``configs/base.py``
 (which imports no JAX, but the port imports nothing of the reference). Every
 architecture is a frozen ``ArchConfig``; ``reduced()`` gives a miniature of
 the same family for the CPU tests. The port runs the dense family
-(``models/transformer.py``); the other families' fields are kept so that
+(``models/transformer.py``) and the ssm family (``models/xlstm.py``); the
+other families' fields are kept so that
 ``n_params`` and ``reduced`` agree with the reference for every config.
 """
 from __future__ import annotations

@@ -4,7 +4,8 @@ The PyTorch port's copy of the reference package's ``core/api.py``. The
 search engine (NSGA-II + MOHAQProblem + beacon logic + the population
 evaluator) consumes a model only through the ``SearchTarget`` protocol, and
 hardware platforms resolve from names via ``core.hardware.get_platform``.
-``repro_torch.core.sru_experiment.TrainedSRU`` is the implementation.
+``repro_torch.core.sru_experiment.TrainedSRU`` and
+``repro_torch.core.xlstm_target.XLSTMTarget`` implement it.
 
 Differences from the reference:
 
@@ -74,8 +75,9 @@ __all__ = [
 @runtime_checkable
 class SearchTarget(Protocol):
     """The full model contract the MOHAQ search engine consumes (see the
-    module docstring). Implementation:
-    ``repro_torch.core.sru_experiment.TrainedSRU``."""
+    module docstring). Implementations:
+    ``repro_torch.core.sru_experiment.TrainedSRU`` and
+    ``repro_torch.core.xlstm_target.XLSTMTarget``."""
 
     # ---- search-space description ----
     @property

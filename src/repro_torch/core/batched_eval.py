@@ -2,8 +2,9 @@
 
 Port of the reference package's ``core/batched_eval.py``, on one device (no
 mesh). ``PopulationEvaluator`` owns the pipeline against any
-``SearchTarget``'s population forward; ``BatchedSRUEvaluator`` binds it to
-``models.sru.forward_population``.
+``SearchTarget``'s population forward: ``BatchedSRUEvaluator`` binds it to
+``models.sru.forward_population``, and the xLSTM target
+(``core/xlstm_target.py``) to its own ``forward_population``.
 
 - Every menu precision is a dynamic (scale, lo, hi) triple, so a whole
   population stacks into one (P, L, 6) grid array (``stack_qps``, or numpy
@@ -15,8 +16,9 @@ mesh). ``PopulationEvaluator`` owns the pipeline against any
   subset) integer error counts. The host takes the float64 percentage and
   the max over subsets, as the scalar path does.
 - Quantized-weight banks are built once per parameter set and cached by
-  its identity (``extend_banks`` specializes fresh f32 banks to the folded
-  fold: the SRU input-layer u-bank).
+  its identity, optionally for a bounded number of sets
+  (``extend_banks`` specializes fresh f32 banks to the folded fold: the
+  SRU input-layer u-bank).
 - Fault hooks (``faults``) inject dispatch failures and poisoned lanes;
   transient failures retry with backoff. A device loss has no mesh to
   shrink here and raises.
@@ -71,7 +73,9 @@ class PopulationEvaluator:
     (``bank_format`` picks "f32" or "packed"; the packed format skips the
     ``extend_banks`` hook, which needs f32 stacks). ``qp_tables``:
     (L, |menu|, 3) weight/activation triple tables, from which the banked
-    pipeline assembles qp stacks by numpy indexing.
+    pipeline assembles qp stacks by numpy indexing. ``bank_cache_size``
+    bounds the parameter sets whose banks stay cached (the least recently
+    used go first); None keeps every set.
     """
 
     def __init__(self, layer_names, val_subsets,
@@ -82,7 +86,8 @@ class PopulationEvaluator:
                  qp_tables=None,
                  extend_banks: Optional[Callable] = None,
                  bank_format: str = "f32",
-                 make_packed_banks: Optional[Callable] = None):
+                 make_packed_banks: Optional[Callable] = None,
+                 bank_cache_size: Optional[int] = None):
         self.layer_names = list(layer_names)
         self.val_subsets = val_subsets
         self.make_qp = make_qp
@@ -114,6 +119,7 @@ class PopulationEvaluator:
         # banks keyed by parameter-set identity; the params ref is kept so
         # a collected object's id can never alias a live cache entry
         self._banks: Dict[int, tuple] = {}
+        self._bank_cache_size = bank_cache_size
         self.device = val_subsets[0][0].device
         shapes = {tuple(f.shape) for f, _ in val_subsets}
         self._folded = len(shapes) == 1 and len(val_subsets) > 1
@@ -145,7 +151,12 @@ class PopulationEvaluator:
         if not self.use_banks:
             return None
         key = id(params)
-        if key not in self._banks:
+        if key in self._banks:
+            self._banks[key] = self._banks.pop(key)   # most recently used
+        else:
+            if self._bank_cache_size is not None:
+                while len(self._banks) >= max(self._bank_cache_size, 1):
+                    del self._banks[next(iter(self._banks))]
             if self.bank_format == "packed":
                 banks = self._make_packed_banks(params)
             else:

@@ -11,7 +11,10 @@ Port of the reference package's ``core/quantization.py``:
 Bitwise parity with the reference rests on three habits: ``torch.round``
 rounds half to even like ``jnp.round``; every grid divides by its scale
 (never multiplies by ``1/scale``); and every scale is a float32 tensor
-before it meets the data, as the reference's traced triples are.
+before it meets the data, as the reference's traced triples are. On bf16
+data each quantizer follows JAX's type promotion for its own grid: a
+float32-array grid widens the data to float32 (``fake_quant_triple``), a
+Python-float grid keeps bf16 arithmetic (``quantize_int``).
 """
 from __future__ import annotations
 
@@ -34,8 +37,11 @@ def _f32(v, like: torch.Tensor) -> torch.Tensor:
 
 def mmse_clip(x, bits: int, n_grid: int = 64) -> float:
     """MMSE clipping threshold: grid-search the clip value minimizing
-    ||x - Q(x)||^2 (host numpy, as in the reference)."""
+    ||x - Q(x)||^2 (host numpy, as in the reference). A CUDA tensor is
+    searched on its device instead (``_mmse_clip_on_device``)."""
     if isinstance(x, torch.Tensor):
+        if x.device.type == "cuda":
+            return _mmse_clip_on_device(x, bits, n_grid)
         x = x.detach().cpu().numpy()
     x = np.asarray(x, np.float32)
     absmax = float(np.abs(x).max()) or 1.0
@@ -51,6 +57,29 @@ def mmse_clip(x, bits: int, n_grid: int = 64) -> float:
     return best_c
 
 
+@torch.no_grad()
+def _mmse_clip_on_device(x: torch.Tensor, bits: int, n_grid: int) -> float:
+    """``mmse_clip``'s search on a CUDA tensor: the same candidate clips
+    (host ``linspace`` fractions of the same max |x|) and the first
+    candidate of least error. The host divides float32 weights by a
+    float64 scale, which numpy 2 computes in float64; so does this. Its
+    mean sums in another order than numpy's, so it can pick another clip
+    only where two candidates' errors agree to float64 rounding. On the
+    51.6 M-weight head of xlstm-350m the host search takes minutes; this
+    takes milliseconds."""
+    x = x.detach().flatten().to(torch.float64)
+    absmax = float(torch.max(torch.abs(x))) or 1.0
+    lo, hi = INT_RANGES[bits]
+    clips = [absmax * frac for frac in np.linspace(1.0 / n_grid, 1.0, n_grid)]
+    errs = []
+    for c in clips:
+        # a tensor, not a Python scalar: CUDA would multiply by 1 / scale
+        scale = torch.as_tensor(c / hi, dtype=torch.float64, device=x.device)
+        q = torch.clamp(torch.round(x / scale), lo, hi) * scale
+        errs.append(torch.mean(torch.square(x - q)))
+    return clips[int(torch.argmin(torch.stack(errs)))]
+
+
 def fixed_point_16(x: torch.Tensor) -> torch.Tensor:
     """16-bit fixed point: int bits sized to the range, rest sign+fraction."""
     absmax = torch.max(torch.abs(x))
@@ -62,11 +91,38 @@ def fixed_point_16(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x / scale), -lim - 1, lim) * scale
 
 
+def _is_narrow(x: torch.Tensor) -> bool:
+    """True for a floating dtype narrower than float32 (bf16, f16)."""
+    return x.dtype.is_floating_point and x.dtype.itemsize < 4
+
+
+def _weak(v) -> bool:
+    """True for a Python number, which JAX types weakly (it takes the other
+    operand's dtype); numpy scalars and arrays are strongly typed."""
+    return isinstance(v, (int, float)) and not isinstance(v, np.generic)
+
+
 def quantize_int(x: torch.Tensor, bits: int, clip: float) -> torch.Tensor:
-    """Symmetric linear integer fake-quant with clipping threshold ``clip``
-    (a host float; its grid scale becomes float32 as in the reference)."""
+    """Symmetric linear integer fake-quant with clipping threshold ``clip``.
+    On float32 data the grid scale is a float32 tensor, as in the
+    reference.
+
+    On bf16 data the result follows JAX's type promotion for ``clip``. A
+    Python float (what the search and retraining pass) is weakly typed, so
+    JAX keeps the arithmetic in bf16: XLA rounds the scale to bf16 once,
+    and evaluates each bf16 operation in float32 and rounds its result back
+    to bf16. The port spells out the same steps: the quotient is rounded to
+    bf16 before ``round`` (round and clip of a bf16 value are exact), and
+    the product once at the end. A numpy scalar is strongly typed: the
+    float32 scale promotes the data, and the result is float32."""
     lo, hi = INT_RANGES[bits]
     scale = _f32(clip / hi, x)
+    if _is_narrow(x) and _weak(clip):
+        scale = scale.to(x.dtype).to(torch.float32)
+        quot = (x.to(torch.float32) / scale).to(x.dtype).to(torch.float32)
+        return (torch.clamp(torch.round(quot), lo, hi) * scale).to(x.dtype)
+    if _is_narrow(x):
+        x = x.to(torch.float32)
     return torch.clamp(torch.round(x / scale), lo, hi) * scale
 
 
@@ -101,9 +157,11 @@ def quantize_activation(a: torch.Tensor, bits: int,
     if bits == 16:
         int_bits = np.ceil(np.log2(max(expected_range, 1e-9)))
         frac_bits = 15.0 - max(int_bits, 0.0)
+        # a numpy float64 scale: strongly typed, it widens bf16 data
         scale = _f32(2.0 ** (-frac_bits), a)
         lim = 2.0 ** 15 - 1
-        q = torch.clamp(torch.round(a / scale), -lim - 1, lim) * scale
+        af = a.to(torch.float32) if _is_narrow(a) else a
+        q = torch.clamp(torch.round(af / scale), -lim - 1, lim) * scale
         return ste(a, q.to(a.dtype))
     return ste(a, quantize_int(a, bits, expected_range).to(a.dtype))
 
@@ -126,9 +184,15 @@ def fake_quant_triple(x: torch.Tensor, scale, lo, hi,
     grid may be scalars or tensors broadcastable against ``x`` (one grid
     per population lane). ``use_ste`` returns ``x + (q - x).detach()``:
     the value can differ from ``q`` in the last ulp, exactly as the
-    reference's ``x + stop_gradient(q - x)`` does."""
+    reference's ``x + stop_gradient(q - x)`` does.
+
+    The reference's grid is a float32 array, which promotes bf16 data to
+    float32 in JAX: the divide, round, clip and multiply run in float32
+    and only ``q`` is cast back to ``x.dtype``. PyTorch would keep a bf16
+    ``x`` in bf16 against a 0-dim grid, so ``x`` is widened here first."""
     scale, lo, hi = _f32(scale, x), _f32(lo, x), _f32(hi, x)
-    q = torch.clamp(torch.round(x / scale), lo, hi) * scale
+    xf = x.to(torch.float32) if _is_narrow(x) else x
+    q = torch.clamp(torch.round(xf / scale), lo, hi) * scale
     q = q.to(x.dtype)
     return x + (q - x).detach() if use_ste else q
 

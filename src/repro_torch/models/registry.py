@@ -1,9 +1,10 @@
 """Model API: ``get_model(cfg)`` returns a ``Model`` with init, loss and
 serving entry points.
 
-Port of the LM family of the reference package's ``models/registry.py``.
-The other families (xLSTM, encoder-decoder) wait for ROADMAP.md queue 1,
-items 8 and 10; ``get_model`` raises ``NotImplementedError`` for them.
+Port of the reference package's ``models/registry.py`` for the LM family
+and the ssm family (the xLSTM, ``models/xlstm.py``; its ``Model`` has no
+serving entry points yet). The encoder-decoder family waits for ROADMAP.md
+queue 1, item 10; ``get_model`` raises ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import transformer, xlstm
 
 
 def cross_entropy(logits, labels, ignore: int = -1):
@@ -63,10 +64,21 @@ def _lm_model(cfg: ArchConfig, device) -> Model:
     )
 
 
+def _xlstm_model(cfg: ArchConfig, device) -> Model:
+    def loss(params, batch):
+        logits = xlstm.forward(params, cfg, batch["tokens"])
+        return cross_entropy(logits, batch["labels"])
+
+    return Model(cfg=cfg, init=lambda seed: xlstm.init_lm(seed, cfg, device),
+                 loss=loss)
+
+
 def get_model(cfg: ArchConfig, device="cuda") -> Model:
     if cfg.family in ("dense", "moe", "hybrid", "vlm"):
         return _lm_model(cfg, device)   # moe/hybrid raise in transformer
-    if cfg.family in ("ssm", "audio"):
-        raise NotImplementedError(f"the {cfg.family} family is not ported "
-                                  f"(ROADMAP.md queue 1, items 8 and 10)")
+    if cfg.family == "ssm":
+        return _xlstm_model(cfg, device)
+    if cfg.family == "audio":
+        raise NotImplementedError("the audio family is not ported "
+                                  "(ROADMAP.md queue 1, item 10)")
     raise KeyError(cfg.family)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
 version (scan: 1e-5; MxVs: rtol 1e-4 / atol 1e-3; the packed MxV bitwise
 equal to the f32 MxV on the dequantized bank), the wrappers' launch counts
-and layout checks, the model's kernel lane against its plain lane, and the
-training forward and retraining on the card against the CPU.
+and layout checks, the SRU's and the xLSTM's kernel lanes against their
+plain lanes, and the training forward and retraining on the card against
+the CPU.
 
 Every test is marked ``gpu`` and skips where no CUDA device is present.
 The file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -374,6 +375,38 @@ def test_training_forward_and_retrain_on_the_card(dev):
             for k in ("v", "b"):
                 assert torch.equal(beacon[f"L{i}"][d][k],
                                    on_card[f"L{i}"][d][k])
+
+
+def test_xlstm_kernel_lane_matches_plain_lane(dev):
+    """The xLSTM target at its CPU search config, random weights, on the
+    card: one ``bank_mxv_pop`` launch per MxV (5 a mLSTM block, 2 plus one
+    per time step an sLSTM block, 1 for the head), and the smoke script's
+    lane comparison (``chip_smoke.compare_xlstm_lanes``): every MxV call
+    of every leaf on the path's inputs within rtol 1e-4 / atol 1e-3 of its
+    plain version, no lane parting before its first block, an argmax differing
+    only below its lane's logit gap, and a lane flip that moves no other
+    lane. The requant lane launches the kernel too."""
+    import chip_smoke as C
+    from repro_torch.core import xlstm_target as XT
+    from repro_torch.models import xlstm
+    cfg = XT.search_config()
+    target = XT.target_from_params(cfg, xlstm.init_lm(0, cfg, dev),
+                                   device=dev, val_batch=4, val_seq=16)
+    rng = np.random.default_rng(0)
+    allocs = [{nm: (int(rng.choice(MENU)), int(rng.choice(MENU)))
+               for nm in target.layer_names} for _ in range(8)]
+    ev = target.batched_evaluator()
+    T, G = ev._feats_all.shape[1], cfg.n_layers // 2
+    for banks in (ev._banks_for(target.params), None):
+        before = ops.launch_counts()["bank_mxv_pop"]
+        XT.forward_population(target.params, cfg, ev._feats_all,
+                              ev._stack(allocs), banks=banks)
+        assert ops.launch_counts()["bank_mxv_pop"] - before == \
+            G * (7 + T) + 1
+    st = C.compare_xlstm_lanes(target, allocs)
+    assert st["lanes"] == 8 and st["lane_flip"]["others_bitwise_equal"]
+    assert len(st["path_mxv_max_abs_err"]) == G * 8 + 1
+    assert max(st["path_mxv_max_abs_err"].values()) <= 1e-3
 
 
 def test_checkpointed_beacon_search_resumes_on_the_card(dev, tmp_path):

@@ -210,9 +210,9 @@ def test_import_repro_torch_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_no_port_file_imports_the_reference():
+def _reference_imports(files):
     offenders = []
-    for f in sorted(PORT_ROOT.rglob("*.py")):
+    for f in files:
         tree = ast.parse(f.read_text(), str(f))
         for node in ast.walk(tree):
             names = []
@@ -223,4 +223,15 @@ def test_no_port_file_imports_the_reference():
             for n in names:
                 if n.split(".")[0] in ("repro", "jax", "jaxlib"):
                     offenders.append(f"{f.name}:{node.lineno} {n}")
-    assert offenders == []
+    return offenders
+
+
+def test_no_port_file_imports_the_reference():
+    assert _reference_imports(sorted(PORT_ROOT.rglob("*.py"))) == []
+
+
+def test_card_scripts_import_no_reference():
+    """The scripts that drive the port on the card, at the repo root."""
+    root = PORT_ROOT.parent.parent
+    assert _reference_imports([root / "chip_smoke.py",
+                               root / "xlstm_train_probe.py"]) == []
