@@ -104,7 +104,24 @@ Phases, each printing JSON lines:
    retrains none. Printed: the training curve, the generation sizes and
    seconds, ``n_evals``, fronts, retrain seconds, each beacon's error
    under the base and its own params, and peak memory;
-9. timing: each kernel, its plain version and the PyTorch library call
+9. moe_lm: no kernel runs here. The LM trainer, ``python -m
+   repro_torch.launch.train``'s ``main``, on granite-moe-1b-a400m at full
+   width and depth (``MOE_TRAIN``: 40 steps of 8 x 512 tokens checkpointed
+   at 40, the same command with ``--steps 50``, which must resume, then 5
+   steps with ``--compress-grads``): the loss at every step, median ms a
+   step, tokens/s, peak memory, each checkpoint save's and restore's
+   seconds and bytes; it fails on a non-finite loss, on a last-10-step
+   mean loss not below the first 10's, or on a missed resume. Then
+   qwen2-moe-a2.7b at full width and depth, seeded random bf16 weights:
+   batch 4, a 128-token prompt and 16 greedy decode steps through
+   ``get_model(cfg).prefill/decode``, in bf16 and from ``quantize_tree``
+   at 8 and 4 bits with each layer dequantized when it runs; checks: one
+   layer's ``moe_ffn`` on the card against the CPU (the same routing, or a
+   near tie; atol 0.02), ``quantize_tree`` of a slice of every leaf kind
+   bitwise the CPU's, the lazy per-layer dequantization bitwise
+   ``dequantize_tree``'s. Then xlstm-350m's prefill + decode against its
+   forward at full width (atol 0.2 at 4 layers; full depth recorded);
+10. timing: each kernel, its plain version and the PyTorch library call
    (CUDA events, after warm-up) at the main paths' shapes and at the
    serving shapes; for the bank kernels the median and range of 5 repeats
    beside ``torch.bmm`` with and without its ``index_select`` gather and
@@ -121,7 +138,7 @@ Phases, each printing JSON lines:
    device times and ``host_ms`` the event-timed call (``ms_from`` says
    which).
 
-Each path (3, 4, 5, 6, 7, 8) runs with the launch counts set to 0 just
+Each path (3, 4, 5, 6, 7, 8, 9) runs with the launch counts set to 0 just
 before it and read just after (phase 5: in the resumed child, around its
 search; phase 8: around each of its two searches);
 the ``kernels`` line's ``launches`` add up those reads.
@@ -132,9 +149,12 @@ no CUDA device is present or the port's sources are missing.
 from __future__ import annotations
 
 import contextlib
+import gc
+import io
 import json
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -216,6 +236,18 @@ XLSTM_MXV_SHAPES = {"fc": ((64, 1024, 1024, 2048), 4),
                     "wx": ((64, 1024, 1024, 8192), 4),
                     "head": ((64, 1024, 1024, 50432), 4),
                     "rec": ((256, 16, 512, 2048), 16)}
+# the moe_lm phase: granite-moe-1b-a400m trained at full width by
+# launch/train.py (steps of batch x seq tokens: four MoE groups of 1,024 a
+# layer; a constant lr, so that the resumed run continues the first one's
+# schedule; lr 3e-4: at 1e-3 and 3e-3 the loss did not fall over 50 steps,
+# PERF.md), qwen2-moe-a2.7b served at full width, the xLSTM's decode at
+# full width (its check at 4 layers; PERF.md)
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+MOE_TRAIN = dict(batch=8, seq=512, lr=3e-4, steps=40, resumed_steps=50,
+                 compress_steps=5)
+MOE_SERVE_ARCH = "qwen2-moe-a2.7b"
+MOE_SERVE = dict(batch=4, prompt=128, gen=16)
+XLSTM_DECODE = dict(batch=4, prompt=64, gen=16, checked_layers=4)
 TRAINED_DIR = "trained"       # the training checkpoint, under the work dir
 STORE_DIR = "search_store"    # the uninterrupted beacon run's SearchStore
 CHILD_TIMEOUT_S = 600
@@ -1953,6 +1985,382 @@ def phase_xlstm_search(dev):
     return {k: counts[k] + beacon_counts[k] for k in counts}
 
 
+def moe_train(dev, work: Path) -> dict:
+    """``launch.train.main`` on granite-moe-1b-a400m at full width and
+    depth (``MOE_TRAIN``): 40 steps checkpointed at step 40, the same
+    command again with ``--steps 50`` (it must resume from step 40), then 5
+    steps with ``--compress-grads`` and no checkpoint. Each checkpoint
+    save's and restore's seconds and bytes are read by wrapping
+    ``training.checkpoint.save`` / ``restore`` for the phase. Raises on a
+    non-finite loss, on a mean of the last 10 steps' losses not below the
+    first 10's, or on a run that did not resume."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.training import checkpoint as ck
+
+    ckpt_dir = work / "moe_ckpt"
+    io_rows = []
+    save, restore = ck.save, ck.restore
+
+    def timed(kind, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            row = {"kind": kind, "seconds": time.perf_counter() - t}
+            if kind == "save":
+                row.update(step=a[1], bytes=dir_bytes(Path(out)))
+            else:
+                row["step"] = out[1]
+            io_rows.append(row)
+            return out
+        return call
+
+    base = ["--arch", MOE_TRAIN_ARCH, "--batch", str(MOE_TRAIN["batch"]),
+            "--seq", str(MOE_TRAIN["seq"]), "--lr", str(MOE_TRAIN["lr"]),
+            "--schedule", "constant", "--log-every", "1",
+            "--device", str(dev)]
+    runs = {"first": ["--steps", str(MOE_TRAIN["steps"]), "--ckpt-dir",
+                      str(ckpt_dir), "--ckpt-every", str(MOE_TRAIN["steps"])],
+            "resumed": ["--steps", str(MOE_TRAIN["resumed_steps"]),
+                        "--ckpt-dir", str(ckpt_dir), "--ckpt-every",
+                        str(MOE_TRAIN["steps"])],
+            "compress_grads": ["--steps", str(MOE_TRAIN["compress_steps"]),
+                               "--compress-grads"]}
+    tokens = MOE_TRAIN["batch"] * MOE_TRAIN["seq"]
+    out, stream = {}, []
+    ck.save, ck.restore = timed("save", save), timed("restore", restore)
+    try:
+        for name, extra in runs.items():
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                final = train.main(base + extra)
+            torch.cuda.synchronize()
+            log = buf.getvalue()
+            steps = [(int(i), float(loss), float(ms)) for i, loss, ms in
+                     re.findall(r"\[train\] step (\d+)/\d+ loss=(\S+) "
+                                r"lr=\S+ (\d+)ms/step", log)]
+            ms = [m for _, _, m in steps[1:]] or [steps[0][2]]
+            out[name] = {
+                "args": extra, "wall_s": time.perf_counter() - t0,
+                "first_step": steps[0][0], "last_step": steps[-1][0],
+                "loss": {i: loss for i, loss, _ in steps},
+                "final_loss": final,
+                "step_ms_median": float(np.median(ms)),
+                "step_ms_first": steps[0][2],
+                "tokens_per_s": tokens / (float(np.median(ms)) / 1e3),
+                "resumed": "resumed from step" in log,
+                "memory_allocated_before": held,
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            if name != "compress_grads":
+                stream += [loss for _, loss, _ in steps]
+            emit({"phase": "moe_lm", "train": {name: out[name]}})
+        disk = shutil.disk_usage(work)
+    finally:
+        ck.save, ck.restore = save, restore
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    head, tail = float(np.mean(stream[:10])), float(np.mean(stream[-10:]))
+    summary = {"model": MOE_TRAIN_ARCH, **MOE_TRAIN, "tokens_per_step":
+               tokens, "checkpoint_io": io_rows,
+               "first_10_mean": head, "last_10_mean": tail,
+               "disk_free_bytes": disk.free}
+    emit({"phase": "moe_lm", "train_summary": summary})
+    summary["runs"] = out
+    losses = stream + list(out["compress_grads"]["loss"].values())
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"moe_lm training: a non-finite loss {losses}")
+    if not tail < head:
+        raise AssertionError(f"moe_lm training: the last 10 steps' mean "
+                             f"loss {tail} is not below the first 10's "
+                             f"{head}")
+    first = MOE_TRAIN["steps"] + 1
+    if not (out["resumed"]["resumed"]
+            and out["resumed"]["first_step"] == first
+            and not out["first"]["resumed"]):
+        raise AssertionError(f"moe_lm training did not resume from step "
+                             f"{MOE_TRAIN['steps']}: {out['resumed']}")
+    if [r["kind"] for r in io_rows] != ["save", "restore", "save"]:
+        raise AssertionError(f"moe_lm checkpoints: {io_rows}")
+    return summary
+
+
+def moe_cpu_checks(params, cfg, dev) -> dict:
+    """The card against the CPU on qwen2-moe's own weights: layer 0's
+    ``moe_ffn`` on a seeded (4, 32, D) bf16 hidden state (the same routing
+    at every token, or a near tie; the output within atol 0.02), and
+    ``quantize_tree`` at 8 and 4 bits of a slice of every leaf kind (each
+    stacked block leaf's layer 0, kept 3-D or 4-D; 4,096 rows of the
+    embedding and columns of the head) bitwise."""
+    import torch
+    from repro_torch.core import quantization as Q
+    from repro_torch.core.durable_io import flatten_tree
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+
+    def to_cpu(tree):
+        return cm.tree_map(lambda t: t.cpu(), tree)
+    p = tfm.layer(params["blocks"], 0)["ffn"]
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((4, 32, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+    got = cm.moe_ffn(p, x, top_k=cfg.top_k)
+    p_cpu, x_cpu = to_cpu(p), x.cpu()
+    want = cm.moe_ffn(p_cpu, x_cpu, top_k=cfg.top_k)
+    gates = (torch.softmax(x.reshape(-1, cfg.d_model).float() @ p["router"],
+                           -1).cpu(),
+             torch.softmax(x_cpu.reshape(-1, cfg.d_model).float()
+                           @ p_cpu["router"], -1))
+    top = [torch.topk(gt, cfg.top_k + 1, -1) for gt in gates]
+    picks = [t.indices[:, :cfg.top_k].sort(-1).values for t in top]
+    same = (picks[0] == picks[1]).all(-1)
+    margin = top[1].values[:, cfg.top_k - 1] - top[1].values[:, cfg.top_k]
+    err = float((got.cpu().float() - want.float()).abs().max())
+    ffn = {"shape": list(x.shape), "tokens_routed_differently":
+           int((~same).sum()), "min_top_k_margin": float(margin.min()),
+           "max_abs_err": err, "atol": 0.02}
+    if not same.all():
+        if float(margin[~same].max()) >= 1e-5:
+            raise AssertionError(f"moe_ffn routes differently on the card "
+                                 f"away from a near tie: {ffn}")
+    elif not err <= 0.02:
+        raise AssertionError(f"moe_ffn on the card is off the CPU's: {ffn}")
+    blocks = cm.tree_map(lambda t: t[:1], params["blocks"])
+    tree = {"blocks": blocks, "embed": params["embed"][:4096],
+            "lm_head": params["lm_head"][:, :4096],
+            "final_norm": params["final_norm"]}
+    quant = {}
+    for bits in (8, 4):
+        card = Q.quantize_tree(tree, bits)
+        host = Q.quantize_tree(to_cpu(tree), bits)
+        flat_c, flat_h = flatten_tree(card), flatten_tree(host)
+        equal = {k: torch.equal(flat_c[k].cpu(), flat_h[k]) for k in flat_h}
+        quant[bits] = {"leaves": len(equal), "bitwise_equal": all(
+            equal.values())}
+        if not all(equal.values()):
+            raise AssertionError(f"quantize_tree at {bits} bits on the card "
+                                 f"differs from the CPU's: "
+                                 f"{[k for k, v in equal.items() if not v]}")
+    return {"moe_ffn_vs_cpu": ffn, "quantize_tree_vs_cpu": quant}
+
+
+def lazy_dequant_check(qtree, spec, bits, n_layers) -> dict:
+    """Every stacked leaf dequantized whole (``dequantize_tree`` of the
+    leaf) at layers 0 and L - 1 against ``DequantizedByLayer``'s layer:
+    bitwise."""
+    import torch
+    from repro_torch.core import quantization as Q
+    from repro_torch.models import transformer as tfm
+    from repro_torch.core.durable_io import flatten_tree
+    lazy = Q.DequantizedByLayer(qtree, spec, bits)
+    layers = {i: flatten_tree(tfm.layer(lazy["blocks"], i))
+              for i in (0, n_layers - 1)}
+    equal = True
+    for name, leaf_spec in flatten_tree(spec["blocks"]).items():
+        node = qtree["blocks"]
+        for key in name.split("/"):
+            node = node[key]
+        whole = Q.dequantize_tree(node, leaf_spec, bits)
+        for i, got in layers.items():
+            equal &= bool(torch.equal(whole[i], got[name]))
+        del whole
+    return {"leaves": len(layers[0]), "layers": sorted(layers),
+            "bitwise_equal": equal}
+
+
+def moe_serve(dev) -> dict:
+    """qwen2-moe-a2.7b at full width and depth, seeded random bf16 weights
+    drawn on the card: batch 4, a 128-token prompt and 16 greedy decode
+    steps through ``registry.get_model(cfg).prefill/decode``
+    (``make_serve_prefill/decode``), in bf16 and then from
+    ``quantize_tree`` at 8 and at 4 bits with each layer dequantized when it
+    runs (``DequantizedByLayer``). Before the bf16 tree is freed,
+    ``moe_cpu_checks``; after, the lazy dequantization against whole-leaf
+    ``dequantize_tree`` (``lazy_dequant_check``). Token agreement
+    with bf16 is reported, not held to a bar (random weights under one
+    scale a tensor)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import quantization as Q
+    from repro_torch.core.durable_io import flatten_tree
+    from repro_torch.models.registry import get_model
+    from repro_torch.training import train_step as ts
+
+    cfg = get_config(MOE_SERVE_ARCH)
+    B, P, G = MOE_SERVE["batch"], MOE_SERVE["prompt"], MOE_SERVE["gen"]
+    model = get_model(cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                           device=dev)
+    prefill = ts.make_serve_prefill(model, {"max_len": P + G})
+    decode = ts.make_serve_decode(model)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for t in flatten_tree(tree).values())
+
+    def serve(p):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = prefill(p, {"tokens": prompt})
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        row = {"prefill_s": time.perf_counter() - t}
+        toks, step_ms = [tok], []
+        for _ in range(G):
+            t = time.perf_counter()
+            logits, cache = decode(p, cache, {"token": tok})
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            toks.append(tok)
+        if not torch.isfinite(logits.float()).all():
+            raise AssertionError("moe_lm serve: non-finite logits")
+        row.update(decode_ms_per_token=float(np.median(step_ms)),
+                   decode_ms_range=[min(step_ms), max(step_ms)],
+                   cache_positions=cache["cur"])
+        return row, torch.cat(toks, dim=1)
+
+    out = {"model": cfg.name, "params": cfg.n_params(),
+           "active_params": cfg.n_active_params(), "batch": B, "prompt": P,
+           "decode_steps": G, "init_s": init_s,
+           "memory_allocated_before": held}
+    widths = {}
+    row, dense = serve(params)
+    widths["bf16"] = {**row, "weight_bytes": nbytes(params)}
+    out["checks"] = moe_cpu_checks(params, cfg, dev)
+    spec = Q.tree_spec(params)
+    qtrees = {}
+    for bits in (8, 4):
+        t = time.perf_counter()
+        qtrees[bits] = Q.quantize_tree(params, bits)
+        torch.cuda.synchronize()
+        widths[f"int{bits}"] = {"quantize_s": time.perf_counter() - t,
+                                "weight_bytes": nbytes(qtrees[bits])}
+    out["peak_with_bf16_and_both_quantized"] =         torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for bits, qtree in qtrees.items():
+        lazy = Q.DequantizedByLayer(qtree, spec, bits)
+        row, toks = serve(lazy)
+        widths[f"int{bits}"].update(
+            row, token_agreement_with_bf16=float(
+                (toks == dense).float().mean()),
+            first_step_agreement=float((toks[:, 0] == dense[:, 0]).float()
+                                       .mean()),
+            lazy_dequant=lazy_dequant_check(qtree, spec, bits,
+                                            cfg.n_layers))
+        if not widths[f"int{bits}"]["lazy_dequant"]["bitwise_equal"]:
+            raise AssertionError(f"lazy dequantization at {bits} bits is "
+                                 f"not bitwise dequantize_tree's")
+    out["peak_quantized_only"] = torch.cuda.max_memory_allocated()
+    out["widths"] = widths
+    emit({"phase": "moe_lm", "serve": out})
+    del qtrees
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_decode(dev) -> dict:
+    """xlstm-350m at full width, random weights drawn on the card:
+    ``prefill`` of 64 tokens and 16 ``decode_step``s (batch 4) against
+    ``forward`` over the 80 tokens, at ``XLSTM_DECODE["checked_layers"]``
+    layers (every position's logits within atol 0.2, the CPU tests' bound)
+    and at full depth (recorded, no bar: a random-init xLSTM carries a
+    summation-order difference of its chunked and stepped forms into
+    logit differences that grow with depth)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm
+    from repro_torch.models.registry import get_model
+
+    full_cfg = get_config("xlstm-350m")
+    B, P, G = XLSTM_DECODE["batch"], XLSTM_DECODE["prompt"], \
+        XLSTM_DECODE["gen"]
+    rows = {}
+    for layers in (XLSTM_DECODE["checked_layers"], full_cfg.n_layers):
+        cfg = dataclasses.replace(full_cfg, n_layers=layers)
+        model = get_model(cfg, dev)
+        params = model.init(0)
+        g = torch.Generator(device=dev).manual_seed(2)
+        tokens = torch.randint(0, cfg.vocab_size, (B, P + G), generator=g,
+                               device=dev)
+        with torch.no_grad():
+            full = xlstm.forward(params, cfg, tokens).float()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": tokens[:, :P]})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        errs_ = [float((logits[:, 0].float() - full[:, P - 1]).abs().max())]
+        step_ms = []
+        for i in range(P, P + G):
+            t = time.perf_counter()
+            logits, state = model.decode(params, state,
+                                         {"token": tokens[:, i:i + 1]})
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            errs_.append(float((logits[:, 0].float() - full[:, i])
+                               .abs().max()))
+        rows[layers] = {"layers": layers, "prefill_s": prefill_s,
+                        "decode_ms_per_token": float(np.median(step_ms)),
+                        "max_abs_err_vs_forward": max(errs_),
+                        "err_by_position": errs_,
+                        "logit_max": float(full.abs().max()),
+                        "state_cur": state["cur"]}
+        del params, full, state
+        torch.cuda.empty_cache()
+    checked = rows[XLSTM_DECODE["checked_layers"]]
+    out = {"model": full_cfg.name, "batch": B, "prompt": P,
+           "decode_steps": G, "atol": 0.2, "checked": checked,
+           "full_depth": rows[full_cfg.n_layers],
+           "decode_ms_per_token": rows[full_cfg.n_layers][
+               "decode_ms_per_token"]}
+    emit({"phase": "moe_lm", "xlstm_decode": out})
+    if not checked["max_abs_err_vs_forward"] <= 0.2:
+        raise AssertionError(f"xLSTM prefill + decode is off its forward by "
+                             f"{checked['max_abs_err_vs_forward']}")
+    return out
+
+
+def phase_moe_lm(dev) -> dict:
+    """The LM trainer, MoE serving from quantized trees and the xLSTM's
+    decode (``moe_train``, ``moe_serve``, ``xlstm_decode``). The path runs
+    none of the CUDA kernels; its launch counts are read all the same."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        train = moe_train(dev, Path(tmp))
+    serve = moe_serve(dev)
+    decode = xlstm_decode(dev)
+    counts = ops.launch_counts()
+    emit({"phase": "moe_lm", "seconds": time.perf_counter() - t0,
+          "launches": counts, "train_tokens_per_s": {
+              k: v["tokens_per_s"] for k, v in train["runs"].items()},
+          "serve_decode_ms_per_token": {
+              k: v["decode_ms_per_token"]
+              for k, v in serve["widths"].items()},
+          "xlstm_decode_ms_per_token": decode["decode_ms_per_token"]})
+    return counts
+
+
 def time_xlstm_mxvs(dev):
     """``bank_mxv_pop`` at the xLSTM's MxV shapes (``XLSTM_MXV_SHAPES``,
     seeded inputs drawn on the card, rows built as the target builds them)
@@ -2248,7 +2656,7 @@ def main() -> int:
         beacon_counts, run = phase_beacon_search(dev, target, work)
         paths = [beacon_counts, phase_resume(target, work, run)]
     paths += [phase_lm_serve(dev), phase_front_serve(dev, target),
-              phase_xlstm_search(dev)]
+              phase_xlstm_search(dev), phase_moe_lm(dev)]
     for path_counts in paths:
         counts = {k: counts[k] + path_counts[k] for k in counts}
     kernels = phase_timing(dev, max_err, counts, smi_line, target)

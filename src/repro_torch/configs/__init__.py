@@ -2,7 +2,12 @@
 import importlib
 
 _MODULES = {
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "minicpm-2b": "minicpm_2b",
+    "starcoder2-7b": "starcoder2_7b",
     "stablelm-1.6b": "stablelm_1_6b",
+    "deepseek-67b": "deepseek_67b",
     "xlstm-350m": "xlstm_350m",
     "sru_timit": "sru_timit",
 }
@@ -11,12 +16,7 @@ _MODULES = {
 # ports their families
 _WAITING = {
     "jamba-1.5-large-398b": "item 10 (hybrid Mamba/attention)",
-    "granite-moe-1b-a400m": "item 10 (MoE)",
-    "qwen2-moe-a2.7b": "item 10 (MoE)",
     "internvl2-26b": "item 10 (VLM frontend)",
-    "minicpm-2b": "item 10 (more dense configs)",
-    "starcoder2-7b": "item 10 (more dense configs)",
-    "deepseek-67b": "item 10 (more dense configs)",
     "seamless-m4t-medium": "item 10 (encoder-decoder)",
 }
 

@@ -3,14 +3,17 @@
 Copy of ``ArchConfig`` from the reference package's ``configs/base.py``
 (which imports no JAX, but the port imports nothing of the reference). Every
 architecture is a frozen ``ArchConfig``; ``reduced()`` gives a miniature of
-the same family for the CPU tests. The port runs the dense family
-(``models/transformer.py``) and the ssm family (``models/xlstm.py``); the
-other families' fields are kept so that
+the same family for the CPU tests. The port runs the dense and MoE
+families (``models/transformer.py``) and the ssm family
+(``models/xlstm.py``); the other families' fields are kept so that
 ``n_params`` and ``reduced`` agree with the reference for every config.
+Input shapes are ``ShapeConfig`` entries; ``models/registry.py::
+input_specs`` turns an (arch, shape) cell into shapes and dtypes.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -114,6 +117,14 @@ class ArchConfig:
         embed = V * D * (1 if self.tie_embeddings else 2)
         return core + embed
 
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: only top_k + shared experts)."""
+        if not self.n_experts:
+            return self.n_params()
+        e = 3 * self.d_model * self.moe_ff
+        dead = (self.n_experts - self.top_k) * e * self.n_layers
+        return self.n_params() - dead
+
     def reduced(self) -> "ArchConfig":
         """Miniature same-family config for CPU tests."""
         return replace(
@@ -136,3 +147,34 @@ class ArchConfig:
             frontend_dim=64 if self.frontend != "none" else 0,
             head_dim_override=16 if self.head_dim_override else 0,
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> Optional[str]:
+    """None if the (arch, shape) cell runs; else the reason it is skipped."""
+    if shape.name == "long_500k" and not arch.subquadratic:
+        return ("full-attention arch: long_500k needs sub-quadratic "
+                "attention")
+    return None
+
+
+def reduced_shape(shape: ShapeConfig) -> ShapeConfig:
+    return ShapeConfig(shape.name, min(shape.seq_len, 32),
+                       min(shape.global_batch, 2), shape.kind)

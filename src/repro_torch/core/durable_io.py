@@ -170,22 +170,25 @@ def flatten_tree(tree) -> Dict[str, Any]:
     ``/``-joined keys, in the reference's order (dict keys sorted, as
     ``jax.tree_util`` flattens them; ``None`` is an empty subtree)."""
     flat: Dict[str, Any] = {}
-
-    def walk(node, path):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            items = [(k, node[k]) for k in sorted(node)]
-        elif isinstance(node, (list, tuple)):
-            items = list(enumerate(node))
-        else:
-            flat[SEP.join(path)] = node
-            return
-        for k, v in items:
-            walk(v, path + [str(k)])
-
-    walk(tree, [])
+    _flatten_into(flat, tree, [])
     return flat
+
+
+def _flatten_into(flat, node, path) -> None:
+    # module level, not a closure: a recursive closure is a reference cycle
+    # that would hold ``flat`` (tensors on the card) until the garbage
+    # collector runs
+    if node is None:
+        return
+    if isinstance(node, dict):
+        items = [(k, node[k]) for k in sorted(node)]
+    elif isinstance(node, (list, tuple)):
+        items = list(enumerate(node))
+    else:
+        flat[SEP.join(path)] = node
+        return
+    for k, v in items:
+        _flatten_into(flat, v, path + [str(k)])
 
 
 def _map_like(template, fn, path=()):

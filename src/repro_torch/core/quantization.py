@@ -314,3 +314,175 @@ def compression_ratio(layer_weights: Dict[str, int],
     n_all = sum(layer_weights.values()) + vector_weights
     return (n_all * base_bits) / compressed_bits(
         layer_weights, layer_bits, vector_weights)
+
+
+# ---------------------------------------------------- param-tree quantization
+#
+# MOHAQ applied to LM decode: every >= 2-D float leaf of a param tree lives
+# as int8 codes (8 bits) or packed int4 nibbles (4 bits) under one
+# per-tensor symmetric scale, and is dequantized into use. The bits equal
+# the reference's ``quantize_tree`` / ``dequantize_tree`` in both
+# directions. Leaves are quantized and dequantized in chunks along their
+# leading axis (the work is elementwise, so the bits do not change): at
+# qwen2-moe-a2.7b's width one stacked expert leaf holds 4.15 G elements,
+# and a float32 copy of it is 16.6 GB.
+
+TREE_CHUNK_ELEMS = 1 << 26        # elements a chunk holds at most
+
+
+def _is_qleaf(node) -> bool:
+    return isinstance(node, dict) and "q" in node and "scale" in node
+
+
+def _quantizable(leaf) -> bool:
+    return (isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
+            and leaf.dtype in (torch.float32, torch.bfloat16))
+
+
+def _chunks(n_rows: int, row_elems: int):
+    """Slices of the leading axis, each of at most ``TREE_CHUNK_ELEMS``
+    elements (one row at least)."""
+    step = max(1, TREE_CHUNK_ELEMS // max(row_elems, 1))
+    return [slice(i, min(i + step, n_rows)) for i in range(0, n_rows, step)]
+
+
+def _leaf_scale(leaf: torch.Tensor, bits: int) -> torch.Tensor:
+    """The per-tensor scale ``max(max|w|, 1e-9) / hi`` as a float32 tensor
+    on the leaf's device, divided (never multiplied by a reciprocal); the
+    max is exact in any order and dtype, so it is taken chunk by chunk."""
+    hi = 127 if bits == 8 else 7
+    row = leaf[0].numel()
+    amax = torch.stack([leaf[s].abs().amax() for s in _chunks(len(leaf), row)]
+                       ).amax().to(torch.float32)
+    return torch.clamp(amax, min=1e-9) / _f32(hi, amax)
+
+
+def _pack_nibbles(q: torch.Tensor) -> torch.Tensor:
+    """int4 codes (int8 in [-8, 7]) packed two a byte along the last axis,
+    the even element in the low nibble; an odd width gets a zero pad."""
+    if q.shape[-1] % 2:
+        q = torch.cat([q, q.new_zeros(q.shape[:-1] + (1,))], dim=-1)
+    u = q.view(torch.uint8)
+    return ((u[..., 0::2] & 0xF) | ((u[..., 1::2] & 0xF) << 4)).view(
+        torch.int8)
+
+
+def _unpack_nibbles(q: torch.Tensor, width: int) -> torch.Tensor:
+    """Inverse of ``_pack_nibbles``: sign-extended int8 codes, the pad
+    column cut to ``width``."""
+    u = q.view(torch.uint8)
+
+    def signed(nib):
+        nib = nib.to(torch.int8)
+        return nib - ((nib & 0x8) != 0).to(torch.int8) * 16
+    both = torch.stack([signed(u & 0xF), signed((u >> 4) & 0xF)], dim=-1)
+    return both.reshape(q.shape[:-1] + (q.shape[-1] * 2,))[..., :width]
+
+
+def _quantize_leaf(leaf: torch.Tensor, bits: int):
+    """One leaf as ``{"q": int8 codes (int4: packed), "scale": f32[]}``."""
+    hi = 127 if bits == 8 else 7
+    scale = _leaf_scale(leaf, bits)
+    width = leaf.shape[-1] if bits == 8 else -(-leaf.shape[-1] // 2)
+    q = torch.empty(leaf.shape[:-1] + (width,), dtype=torch.int8,
+                    device=leaf.device)
+    for s in _chunks(len(leaf), leaf[0].numel()):
+        codes = torch.clamp(torch.round(leaf[s].to(torch.float32) / scale),
+                            -hi - 1, hi).to(torch.int8)
+        q[s] = codes if bits == 8 else _pack_nibbles(codes)
+    return {"q": q, "scale": scale}
+
+
+def _dequantize_leaf(qleaf, spec, bits: int) -> torch.Tensor:
+    """Inverse of ``_quantize_leaf``: ``codes * scale`` in float32, cast
+    to ``spec``'s dtype (``spec``: anything with the original ``shape`` and
+    ``dtype``, e.g. a meta tensor)."""
+    q, scale = qleaf["q"], qleaf["scale"]
+    out = torch.empty(tuple(spec.shape), dtype=spec.dtype, device=q.device)
+    # a 1-D leaf (one layer of stacked norms) is one chunk: int4 packs its
+    # only axis
+    chunks = _chunks(len(q), q[0].numel()) if q.ndim > 1 else [slice(None)]
+    for s in chunks:
+        codes = q[s] if bits == 8 else _unpack_nibbles(q[s], spec.shape[-1])
+        out[s] = (codes.to(torch.float32) * scale).to(spec.dtype)
+    return out
+
+
+def _check_bits(bits: int) -> None:
+    if bits not in (8, 4):
+        raise ValueError(f"tree quantization takes 8 or 4 bits, not {bits}")
+
+
+def quantize_tree(params, bits: int):
+    """Quantize every >= 2-D float leaf of a nested-dict param tree to
+    ``bits`` (8 or 4) with a per-tensor symmetric scale; int4 packs two
+    codes a byte along the last axis. Each quantized leaf becomes
+    ``{"q": int8, "scale": f32[]}``; other leaves are kept as they are."""
+    _check_bits(bits)
+    if isinstance(params, dict):
+        return {k: quantize_tree(v, bits) for k, v in params.items()}
+    return _quantize_leaf(params, bits) if _quantizable(params) else params
+
+
+def tree_spec(params):
+    """The param tree as meta tensors: shapes and dtypes, no storage (the
+    ``spec_tree`` of ``dequantize_tree``)."""
+    if isinstance(params, dict):
+        return {k: tree_spec(v) for k, v in params.items()}
+    if isinstance(params, torch.Tensor):
+        return torch.empty(params.shape, dtype=params.dtype, device="meta")
+    return params
+
+
+def dequantize_tree(qtree, spec_tree, bits: int):
+    """Inverse of ``quantize_tree``; ``spec_tree`` (``tree_spec`` of the
+    original params) gives each leaf's shape and dtype. A quantized leaf
+    alone, with its spec, is a tree too."""
+    _check_bits(bits)
+    if _is_qleaf(qtree):
+        return _dequantize_leaf(qtree, spec_tree, bits)
+    if isinstance(qtree, dict):
+        return {k: dequantize_tree(v, spec_tree[k], bits)
+                for k, v in qtree.items()}
+    return qtree
+
+
+def _layer_slice(node, i: int):
+    """Layer ``i`` of a stacked (quantized or spec) tree: the codes' and
+    plain leaves' leading index, the scale whole."""
+    if _is_qleaf(node):
+        return {"q": node["q"][i], "scale": node["scale"]}
+    if isinstance(node, dict):
+        return {k: _layer_slice(v, i) for k, v in node.items()}
+    return node[i]
+
+
+class DequantizedByLayer:
+    """A ``quantize_tree`` tree of an LM read as the params it came from,
+    where they are used: ``tree[key]`` dequantizes a top-level entry when
+    read, and the stacked layers (``blocks``) read as an object whose
+    ``layer(i)`` dequantizes layer ``i`` alone
+    (``models/transformer.py::layer`` calls it). So a decode step holds one
+    layer's dequantized weights at a time. Each value is bitwise the slice
+    of ``dequantize_tree``'s: the dequantization is elementwise."""
+
+    def __init__(self, qtree, spec_tree, bits: int):
+        _check_bits(bits)
+        self.qtree, self.spec, self.bits = qtree, spec_tree, bits
+
+    def __contains__(self, key) -> bool:
+        return key in self.qtree
+
+    def __getitem__(self, key):
+        if key == "blocks":
+            return _StackedLayers(self.qtree[key], self.spec[key], self.bits)
+        return dequantize_tree(self.qtree[key], self.spec[key], self.bits)
+
+
+class _StackedLayers:
+    def __init__(self, qtree, spec, bits: int):
+        self.qtree, self.spec, self.bits = qtree, spec, bits
+
+    def layer(self, i: int):
+        return dequantize_tree(_layer_slice(self.qtree, i),
+                               _layer_slice(self.spec, i), self.bits)

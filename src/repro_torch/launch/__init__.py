@@ -1,0 +1,1 @@
+"""Executable entry points of the port: ``python -m repro_torch.launch.train``."""

@@ -1,7 +1,7 @@
 """Shared language-model primitives: RMSNorm, RoPE, dense GQA attention,
-the gated MLP.
+the gated MLP and the mixture-of-experts FFN.
 
-Port of the dense parts of the reference package's ``models/common.py``.
+Port of the reference package's ``models/common.py``.
 Params are nested dicts of tensors in the reference's layout (heads kept as
 their own axis: ``wq`` (D, H, hd), ``wo`` (H, hd, D)), and activations stay
 bf16 between layers, as there. The reference's matmuls take
@@ -10,17 +10,17 @@ bf16 between layers, as there. The reference's matmuls take
 - where it casts the f32 product back to bf16 (``dense``, ``attn_qkv``,
   ``attn_out``) the port runs a bf16 matmul, which accumulates in f32 and
   rounds once;
-- where it keeps the f32 product (attention scores and the PV product) the
-  port upcasts the bf16 inputs to f32: bf16 products are exact in f32, so
-  only the order of the sum differs.
+- where it keeps the f32 product (attention scores, the PV product, the
+  experts' gate and up products) the port upcasts the bf16 inputs to f32:
+  bf16 products are exact in f32, so only the order of the sum differs.
 
 On the card run these with TF32 and reduced-precision bf16 reductions off
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
 ``allow_bf16_reduced_precision_reduction = False``).
 
 Not ported yet (ROADMAP.md queue 1, item 10): the flash-style attention
-branch for sequences longer than ``DENSE_ATTN_MAX`` and mixture-of-experts
-FFNs; both raise ``NotImplementedError``.
+branch for sequences longer than ``DENSE_ATTN_MAX``; it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,6 +32,12 @@ import numpy as np
 import torch
 
 DENSE_ATTN_MAX = 8192   # the reference's limit of its materialized-score path
+# MoE dispatch, read at call time as in the reference: the token-group size
+# and the algorithm ("einsum": GShard one-hot products; "gather": the top-C
+# tokens of each expert by gate weight), and the capacity factor
+MOE_GROUP_SIZE = 1024
+MOE_DISPATCH = "einsum"
+MOE_CAPACITY_FACTOR = 1.25
 _NOT_PORTED = "ROADMAP.md queue 1, item 10"
 
 
@@ -83,8 +89,8 @@ def normal_init(generator: torch.Generator, shape, scale,
     ``dtype``. The reference draws with ``jax.random`` (threefry), so the
     values differ from its ``normal_init`` at any seed; tests carry the
     reference's weights across with ``tensor_from_numpy`` instead."""
-    return (torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=generator.device) * scale).to(dtype)
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------- RoPE
@@ -211,6 +217,128 @@ def mlp(p, x):
     return dense(h, p["w_down"])
 
 
-def moe_ffn(p, x, *, top_k: int, **_):
-    raise NotImplementedError(f"mixture-of-experts FFNs are not ported "
-                              f"({_NOT_PORTED})")
+def init_moe(generator, d_model, d_ff, n_experts, n_shared,
+             dtype=torch.bfloat16, stack=()):
+    """Expert weights stacked on an experts axis (``w_gate`` (E, D, F)), an
+    f32 router (D, E) and, with ``n_shared``, one shared gated MLP of width
+    ``d_ff * n_shared``; ``stack``: leading shape of stacked layers."""
+    s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    st = tuple(stack)
+    p = {
+        "router": normal_init(generator, st + (d_model, n_experts), s_in,
+                              torch.float32),
+        "w_gate": normal_init(generator, st + (n_experts, d_model, d_ff),
+                              s_in, dtype),
+        "w_up": normal_init(generator, st + (n_experts, d_model, d_ff), s_in,
+                            dtype),
+        "w_down": normal_init(generator, st + (n_experts, d_ff, d_model),
+                              s_out, dtype),
+    }
+    if n_shared:
+        p["shared"] = init_mlp(generator, d_model, d_ff * n_shared, dtype,
+                               stack)
+    return p
+
+
+def _normalized_top_k(gates, top_k: int):
+    """The top-k gates (ties to the lower expert) over their sum."""
+    topw, topi = torch.topk(gates, top_k, dim=-1)
+    return topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9), topi
+
+
+def _dispatch_mask(gates, top_k: int, capacity: int):
+    """GShard top-k dispatch with capacity, slot-major. gates: (..., S, E)
+    probabilities (leading axes: independent groups). Returns dispatch
+    (..., S, E, C) bool and combine (..., S, E, C) in the gates' dtype.
+
+    Slot by slot, each expert's tokens take the next free places in token
+    order, after the places earlier slots took (``counts``); a token whose
+    place is at or past ``capacity`` is dropped. The reference loops over
+    the slots; here the slots are one axis, and each slot's ``counts`` the
+    exclusive running sum of the earlier slots' picks (integers: the same
+    places). The reference builds ``one_hot(pos, capacity)``, a zero row
+    for a place out of range; here the place is compared with
+    ``arange(capacity)`` instead (``torch.nn.functional.one_hot`` raises out
+    of range). A token picks an expert in one slot at most, so each (s, e)
+    row holds one weight and ``combine`` is that weight at the token's
+    place: the reference's sum over slots adds zeros to it."""
+    E = gates.shape[-1]
+    topw, topi = _normalized_top_k(gates, top_k)
+    experts = torch.arange(E, device=gates.device)
+    oh = (topi.movedim(-1, 0)[..., None] == experts).to(torch.int32)
+    picks = oh.sum(-2, dtype=torch.int32)                  # (k, ..., E)
+    counts = torch.cumsum(picks, dim=0, dtype=torch.int32) - picks
+    pos = torch.cumsum(oh, dim=-2, dtype=torch.int32) - 1 + counts[..., None, :]
+    keep = (pos < capacity) & (oh > 0)                     # (k, ..., S, E)
+    place = torch.where(keep, pos, -1).amax(0)
+    w_se = (keep.to(gates.dtype) * topw.movedim(-1, 0)[..., None]).sum(0)
+    dispatch = place[..., None] == torch.arange(capacity,
+                                                device=gates.device)
+    return dispatch, dispatch.to(gates.dtype) * w_se[..., None]
+
+
+def _expert_ffn(p, xe, w_gate, w_up):
+    """Each expert's gated MLP on its (G, E, C, D) tokens (G groups). The
+    gate and up products stay f32 (``w_gate``/``w_up``: the f32 weights),
+    the hidden state rounds to the tokens' dtype before the down product.
+    The groups share one product per expert: (E, G * C, D) rows."""
+    G, E, C, D = xe.shape
+    rows = xe.transpose(0, 1).reshape(E, G * C, D)
+    xf = rows.to(torch.float32)
+    h = torch.nn.functional.silu(torch.bmm(xf, w_gate)) * torch.bmm(xf, w_up)
+    ye = torch.bmm(h.to(xe.dtype), p["w_down"])
+    return ye.reshape(E, G, C, D).transpose(0, 1)
+
+
+def moe_ffn(p, x, *, top_k: int, group_size: int = 0,
+            capacity_factor: float = 0.0):
+    """Mixture-of-experts FFN with grouped GShard dispatch. x: (B, T, D).
+
+    Tokens are taken in groups of ``group_size`` (``MOE_GROUP_SIZE``; the
+    last group zero-padded), all groups at once, each routed on its own
+    with capacity ``ceil(S * top_k * capacity_factor / E)`` places an
+    expert; tokens past an expert's capacity are dropped (their residual
+    passes through). With
+    a ``shared`` MLP its output is added. ``MOE_DISPATCH`` picks the
+    algorithm: ``"einsum"`` (one-hot dispatch and combine products, the
+    default) or ``"gather"`` (each expert's top-C tokens by gate weight,
+    scattered back with ``index_add``)."""
+    B, T, D = x.shape
+    E = p["w_gate"].shape[0]
+    N = B * T
+    flat = x.reshape(N, D)
+    S = min(group_size or MOE_GROUP_SIZE, N)
+    capacity_factor = capacity_factor or MOE_CAPACITY_FACTOR
+    n_groups = -(-N // S)
+    pad = n_groups * S - N
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, 0, 0, pad))
+    capacity = max(1, int(math.ceil(S * top_k * capacity_factor / E)))
+    if MOE_DISPATCH not in ("einsum", "gather"):
+        raise ValueError(f"unknown MOE_DISPATCH {MOE_DISPATCH!r}")
+    w_gate = p["w_gate"].to(torch.float32)
+    w_up = p["w_up"].to(torch.float32)
+    groups = flat.reshape(n_groups, S, D)
+    gates = torch.softmax(torch.matmul(groups.to(torch.float32), p["router"]),
+                          dim=-1)                                # (G,S,E)
+    if MOE_DISPATCH == "gather":
+        topw, topi = _normalized_top_k(gates, top_k)
+        w_se = torch.zeros_like(gates).scatter(-1, topi, topw)
+        cap = min(capacity, S)
+        sel_w, sel_idx = torch.topk(w_se.transpose(1, 2), cap, dim=-1)
+        g_idx = torch.arange(n_groups, device=x.device)[:, None, None]
+        ye = _expert_ffn(p, groups[g_idx, sel_idx], w_gate, w_up)
+        contrib = ye.to(torch.float32) * sel_w[..., None]   # (G,E,C,D)
+        y = torch.zeros((n_groups * S, D), dtype=torch.float32,
+                        device=x.device).index_add(
+            0, (sel_idx + g_idx * S).reshape(-1), contrib.reshape(-1, D))
+        y = y.to(x.dtype)
+    else:
+        dispatch, combine = _dispatch_mask(gates, top_k, capacity)
+        xe = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), groups)
+        ye = _expert_ffn(p, xe, w_gate, w_up)
+        y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), ye)
+    y = y.reshape(n_groups * S, D)[:N].reshape(B, T, D)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x)
+    return y

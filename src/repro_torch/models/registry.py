@@ -2,9 +2,10 @@
 serving entry points.
 
 Port of the reference package's ``models/registry.py`` for the LM family
-and the ssm family (the xLSTM, ``models/xlstm.py``; its ``Model`` has no
-serving entry points yet). The encoder-decoder family waits for ROADMAP.md
-queue 1, item 10; ``get_model`` raises ``NotImplementedError`` for it.
+(dense and MoE; ``models/transformer.py``) and the ssm family (the xLSTM,
+``models/xlstm.py``), with ``input_specs`` and ``make_dummy_batch``. The
+hybrid and encoder-decoder families wait for ROADMAP.md queue 1, item 10:
+the hybrid raises in ``models/transformer.py``, the audio family here.
 """
 from __future__ import annotations
 
@@ -13,8 +14,11 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer, xlstm
+
+_AUDIO = "the audio family is not ported (ROADMAP.md queue 1, item 10)"
 
 
 def cross_entropy(logits, labels, ignore: int = -1):
@@ -69,16 +73,67 @@ def _xlstm_model(cfg: ArchConfig, device) -> Model:
         logits = xlstm.forward(params, cfg, batch["tokens"])
         return cross_entropy(logits, batch["labels"])
 
-    return Model(cfg=cfg, init=lambda seed: xlstm.init_lm(seed, cfg, device),
-                 loss=loss)
+    return Model(
+        cfg=cfg,
+        init=lambda seed: xlstm.init_lm(seed, cfg, device),
+        loss=loss,
+        prefill=lambda params, batch: xlstm.prefill(params, cfg,
+                                                    batch["tokens"]),
+        decode=lambda params, cache, batch: xlstm.decode_step(
+            params, cfg, cache, batch["token"]),
+        init_cache=lambda batch, max_len: xlstm.init_state(
+            cfg, batch, max_len, device),
+    )
 
 
 def get_model(cfg: ArchConfig, device="cuda") -> Model:
     if cfg.family in ("dense", "moe", "hybrid", "vlm"):
-        return _lm_model(cfg, device)   # moe/hybrid raise in transformer
+        return _lm_model(cfg, device)   # hybrid raises in transformer
     if cfg.family == "ssm":
         return _xlstm_model(cfg, device)
     if cfg.family == "audio":
-        raise NotImplementedError("the audio family is not ported "
-                                  "(ROADMAP.md queue 1, item 10)")
+        raise NotImplementedError(_AUDIO)
     raise KeyError(cfg.family)
+
+
+# -------------------------------------------------------------- input specs
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Every model input of the (arch, shape) cell as a meta tensor (shape
+    and dtype, no storage). Tokens are int32, as in the reference."""
+    if cfg.family == "audio":
+        raise NotImplementedError(_AUDIO)
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if cfg.family == "vlm" and shape.kind == "train":
+        n_p = min(cfg.frontend_tokens, S // 2)
+        return {"tokens": spec((B, S - n_p)),
+                "patch_embeds": spec((B, n_p, cfg.d_model), torch.bfloat16),
+                "labels": spec((B, S - n_p))}
+    if shape.kind == "train":
+        return {"tokens": spec((B, S)), "labels": spec((B, S))}
+    if shape.kind == "prefill":
+        return {"tokens": spec((B, S))}
+    return {"token": spec((B, 1))}
+
+
+def make_dummy_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
+                     device="cuda") -> Dict[str, Any]:
+    """A concrete batch matching ``input_specs``, drawn on ``device`` from
+    a ``torch.Generator`` seeded with ``seed``: tokens uniform over the
+    vocabulary, embeddings standard normal (the reference draws with
+    ``jax.random``, so the values differ)."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out: Dict[str, Any] = {}
+    for k, s in input_specs(cfg, shape).items():
+        if s.dtype == torch.int32:
+            out[k] = torch.randint(0, cfg.vocab_size, s.shape, generator=g,
+                                   dtype=torch.int32, device=dev)
+        else:
+            out[k] = torch.randn(s.shape, generator=g, dtype=torch.float32,
+                                 device=dev).to(s.dtype)
+    return out

@@ -1,17 +1,21 @@
-"""Decoder-only dense LM: init, forward, prefill and decode with a KV cache.
+"""Decoder-only LM (dense and MoE families): init, forward, prefill and
+decode with a KV cache.
 
-Port of the dense family of the reference package's
+Port of the dense and MoE families of the reference package's
 ``models/transformer.py``. Layers are stacked on a leading axis, as in the
-reference's params (``params["blocks"]["attn"]["wq"]`` is (L, D, H, hd)), so
+reference's params (``params["blocks"]["attn"]["wq"]`` is (L, D, H, hd),
+``params["blocks"]["ffn"]["w_gate"]`` of an MoE is (L, E, D, F)), so
 ``params_from_numpy`` carries its weights across unchanged; a Python loop
-over the stack takes the place of ``lax.scan``. Serving keeps a stacked
-bf16 KV cache, (L, B, max_len, KV, hd), which ``decode_step`` updates in
-place (the reference returns a new one). ``head_fn(hidden) -> logits``
-replaces the dense output head, e.g. with the quantized head of
-``serving/lm.py``.
+over the stack takes the place of ``lax.scan``, and ``layer(blocks, i)``
+reads one layer (a tree that dequantizes one layer at a time, such as
+``core/quantization.py::DequantizedByLayer``, gives its own). Serving
+keeps a stacked KV cache, (L, B, max_len, KV, hd), in ``KV_CACHE_DTYPE``
+(bf16, or int8 at the fixed scale ``KV_CACHE_SCALE``), which
+``decode_step`` updates in place (the reference returns a new one).
+``head_fn(hidden) -> logits`` replaces the dense output head, e.g. with
+the quantized head of ``serving/lm.py``.
 
-Not ported yet (ROADMAP.md queue 1, item 10): the hybrid (Jamba) and MoE
-families and the int8 KV cache (the reference's ``KV_CACHE_DTYPE`` lever).
+Not ported yet (ROADMAP.md queue 1, item 10): the hybrid (Jamba) family.
 """
 from __future__ import annotations
 
@@ -19,39 +23,76 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 
 Params = Dict[str, Any]
-KV_CACHE_DTYPE = torch.bfloat16
 _NOT_PORTED = "ROADMAP.md queue 1, item 10"
 
+# The KV cache's storage dtype (read when a cache is made), and the fixed
+# symmetric scale of an int8 cache: the reference's decode lever, which
+# halves the cache's bytes.
+KV_CACHE_DTYPE = torch.bfloat16
+KV_CACHE_SCALE = 1.0 / 16.0
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "vlm") or cfg.n_experts:
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
                                   f"not ported ({_NOT_PORTED})")
+
+
+def _cache_store(val, cache_dtype):
+    """``val`` as the cache stores it: int8 codes at ``KV_CACHE_SCALE``
+    (the scale is a power of two, so dividing by it is exact), else a
+    cast."""
+    if cache_dtype == torch.int8:
+        return torch.clamp(torch.round(val.to(torch.float32) / KV_CACHE_SCALE),
+                           -128, 127).to(torch.int8)
+    return val.to(cache_dtype)
+
+
+def _cache_load(val, like_dtype):
+    if val.dtype == torch.int8:
+        return (val.to(torch.float32) * KV_CACHE_SCALE).to(like_dtype)
+    return val
 
 
 # ------------------------------------------------------------------ blocks
 
 def init_block(generator, cfg: ArchConfig, layers: int) -> Params:
-    """``layers`` stacked attention blocks: norms, attention, MLP."""
+    """``layers`` stacked attention blocks: norms, attention, and an MLP or
+    (``cfg.n_experts``) an MoE FFN."""
     ones = torch.ones((layers, cfg.d_model), dtype=torch.float32,
                       device=generator.device)
-    return {"norm1": ones, "norm2": ones.clone(),
-            "attn": cm.init_attn(generator, cfg.d_model, cfg.n_heads,
-                                 cfg.n_kv_heads, cfg.head_dim,
-                                 stack=(layers,)),
-            "ffn": cm.init_mlp(generator, cfg.d_model, cfg.d_ff,
-                               stack=(layers,))}
+    p = {"norm1": ones, "norm2": ones.clone(),
+         "attn": cm.init_attn(generator, cfg.d_model, cfg.n_heads,
+                              cfg.n_kv_heads, cfg.head_dim, stack=(layers,))}
+    if cfg.n_experts:
+        p["ffn"] = cm.init_moe(generator, cfg.d_model, cfg.moe_ff,
+                               cfg.n_experts, cfg.n_shared_experts,
+                               stack=(layers,))
+    else:
+        p["ffn"] = cm.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                               stack=(layers,))
+    return p
 
 
-def layer(blocks: Params, i: int) -> Params:
-    """Layer ``i``'s params: views into the stacked tensors."""
+def layer(blocks, i: int) -> Params:
+    """Layer ``i``'s params: views into the stacked tensors, or what
+    ``blocks.layer(i)`` gives where the stack provides it."""
+    if hasattr(blocks, "layer"):
+        return blocks.layer(i)
     return cm.tree_map(lambda t: t[i], blocks)
+
+
+def apply_ffn(p, cfg: ArchConfig, x):
+    if cfg.n_experts:
+        return cm.moe_ffn(p, x, top_k=cfg.top_k)
+    return cm.mlp(p, x)
 
 
 def attn_block_fwd(p, cfg: ArchConfig, x, positions, kv=None):
@@ -64,7 +105,7 @@ def attn_block_fwd(p, cfg: ArchConfig, x, positions, kv=None):
     o = cm.gqa_attention(q, k, v, causal=True)
     x = x + cm.attn_out(p["attn"], o)
     h = cm.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + cm.mlp(p["ffn"], h)
+    return x + apply_ffn(p["ffn"], cfg, h)
 
 
 def attn_block_decode(p, cfg: ArchConfig, x, cache_k, cache_v, cur: int):
@@ -74,13 +115,14 @@ def attn_block_decode(p, cfg: ArchConfig, x, cache_k, cache_v, cur: int):
     h = cm.rms_norm(x, p["norm1"], cfg.norm_eps)
     pos = torch.full((x.shape[0], 1), cur, dtype=torch.int32, device=x.device)
     q, k, v = cm.attn_qkv(p["attn"], h, pos, cfg.rope_theta)
-    cache_k[:, cur:cur + 1] = k.to(cache_k.dtype)
-    cache_v[:, cur:cur + 1] = v.to(cache_v.dtype)
-    o = cm.gqa_attention(q, cache_k, cache_v, q_offset=cur, kv_valid=cur + 1,
-                         chunk_q=1 << 30, chunk_k=1 << 30)
+    cache_k[:, cur:cur + 1] = _cache_store(k, cache_k.dtype)
+    cache_v[:, cur:cur + 1] = _cache_store(v, cache_v.dtype)
+    o = cm.gqa_attention(q, _cache_load(cache_k, q.dtype),
+                         _cache_load(cache_v, q.dtype), q_offset=cur,
+                         kv_valid=cur + 1, chunk_q=1 << 30, chunk_k=1 << 30)
     x = x + cm.attn_out(p["attn"], o)
     h = cm.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + cm.mlp(p["ffn"], h)
+    return x + apply_ffn(p["ffn"], cfg, h)
 
 
 # ------------------------------------------------------------------ stacks
@@ -92,7 +134,7 @@ def init_lm(seed: int, cfg: ArchConfig, device="cuda") -> Params:
     ``randn`` of minutes). The values differ from the reference's
     ``init_lm`` (threefry draws), and a seed gives other values on the CPU
     than on a card."""
-    _dense_only(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     D, V = cfg.d_model, cfg.padded_vocab
@@ -137,15 +179,24 @@ def logits_head(p, cfg: ArchConfig, x):
     return logits.to(torch.bfloat16)
 
 
-@torch.no_grad()
-def forward(params, cfg: ArchConfig, tokens, extra_embeds=None):
-    """Full forward. tokens: (B, T) integer. Returns (B, T_total, V) bf16
-    logits."""
-    _dense_only(cfg)
+def forward(params, cfg: ArchConfig, tokens, extra_embeds=None,
+            remat: bool = True):
+    """Full forward, differentiable (the training loss runs it). tokens:
+    (B, T) integer. Returns (B, T_total, V) bf16 logits. ``remat`` (the
+    reference's default): under autograd, keep only each block's input and
+    recompute the block in the backward pass (``torch.utils.checkpoint``;
+    the reference's ``jax.checkpoint``), which changes no value."""
+    _check_family(cfg)
     x = embed_tokens(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    remat = remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x = attn_block_fwd(layer(params["blocks"], i), cfg, x, positions)
+        bp = layer(params["blocks"], i)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                attn_block_fwd, bp, cfg, x, positions, use_reentrant=False)
+        else:
+            x = attn_block_fwd(bp, cfg, x, positions)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_head(params, cfg, x)
 
@@ -153,7 +204,7 @@ def forward(params, cfg: ArchConfig, tokens, extra_embeds=None):
 # ------------------------------------------------------------------ serving
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
-    _dense_only(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"attn": {"k": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=dev),
@@ -167,7 +218,7 @@ def decode_step(params, cfg: ArchConfig, cache, token, head_fn=None):
     cache's tensors are updated in place and ``cur`` advances by one.
 
     ``head_fn(hidden) -> logits`` overrides the dense output head."""
-    _dense_only(cfg)
+    _check_family(cfg)
     x = embed_tokens(params, cfg, token)
     cur = int(cache["cur"])
     if cur >= cache["attn"]["k"].shape[2]:
@@ -189,7 +240,7 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: Optional[int] = None,
     Returns (last-position logits (B, 1, V), cache). Each block's k and v
     are stored as its forward computes them (the reference recomputes them
     in its scan; the values are the same)."""
-    _dense_only(cfg)
+    _check_family(cfg)
     B, T = tokens.shape
     max_len = max_len or T
     x = embed_tokens(params, cfg, tokens)
@@ -198,8 +249,9 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: Optional[int] = None,
     for i in range(cfg.n_layers):
         kv: Dict[str, torch.Tensor] = {}
         x = attn_block_fwd(layer(params["blocks"], i), cfg, x, positions, kv)
-        cache["attn"]["k"][i, :, :T] = kv["k"].to(KV_CACHE_DTYPE)
-        cache["attn"]["v"][i, :, :T] = kv["v"].to(KV_CACHE_DTYPE)
+        for name in ("k", "v"):
+            c = cache["attn"][name]
+            c[i, :, :T] = _cache_store(kv[name], c.dtype)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = x[:, -1:]
     logits = head_fn(last) if head_fn is not None \

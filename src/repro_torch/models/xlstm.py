@@ -20,8 +20,10 @@ population lanes that read quantized-weight banks
 (``core/xlstm_target.py``). Inputs may carry any leading axes before
 (T, D); the recurrences fold them into one batch axis.
 
-Not ported yet (ROADMAP.md queue 1, item 10): ``mlstm_step``,
-``slstm_step``, ``prefill`` and ``decode_step`` (the serving path).
+Serving: ``prefill`` runs the prompt and returns the recurrent state of
+every pair (``init_state``'s layout, stacked over the G pairs);
+``decode_step`` advances it by one token with ``mlstm_step`` and
+``slstm_step``, updating the state's tensors in place.
 """
 from __future__ import annotations
 
@@ -174,6 +176,33 @@ def mlstm_fwd(p, cfg: ArchConfig, x, chunk: int = 128,
     return out
 
 
+def mlstm_step(p, cfg: ArchConfig, x, state):
+    """One step of the mLSTM recurrence. x: (B, 1, D); state {"S": (B, H,
+    dh, dh), "n": (B, H, dh), "m": (B, H)} in f32. Returns (y (B, 1, D),
+    new state)."""
+    mm = dense_mm(p)
+    B = x.shape[0]
+    H = cfg.n_heads
+    dh = cfg.ssm_d_inner // H
+    q, k, v, logi, logf = _mlstm_qkvg(p, cfg, x, mm)
+    q, k, v = (t[:, 0].to(torch.float32) for t in (q, k, v))
+    logi, logf = logi[:, 0], logf[:, 0]
+    S, n, m = state["S"], state["n"], state["m"]
+    m_new = torch.maximum(logf + m, logi)
+    fw = torch.exp(logf + m - m_new)[..., None, None]
+    iw = torch.exp(logi - m_new)[..., None, None]
+    S_new = S * fw + iw * torch.einsum("bhd,bhe->bhde", k, v)
+    n_new = n * fw[..., 0] + iw[..., 0] * k
+    qs = q * (1.0 / math.sqrt(dh))
+    y = torch.einsum("bhd,bhde->bhe", qs, S_new)
+    denom = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", qs, n_new)),
+                          torch.exp(-m_new))[..., None]
+    y = (y / denom).reshape(B, 1, H * dh)
+    z = F.silu(mm("wz", x).to(torch.float32))
+    y = (y * z).to(x.dtype)
+    return mm("wo", y), {"S": S_new, "n": n_new, "m": m_new}
+
+
 # ------------------------------------------------------------------ sLSTM
 
 def init_slstm(generator: torch.Generator, cfg: ArchConfig, stack=()):
@@ -249,6 +278,19 @@ def slstm_fwd(p, cfg: ArchConfig, x, return_state: bool = False,
     return out
 
 
+def slstm_step(p, cfg: ArchConfig, x, state):
+    """One step of the sLSTM. x: (B, 1, D); state: a dict of (B, H, dh)
+    f32. Returns (y (B, 1, D), new state)."""
+    mm = dense_mm(p)
+    B = x.shape[0]
+    H = cfg.n_heads
+    di = cfg.ssm_d_inner
+    pre = (mm("wx", x[:, 0], f32=True) + p["bias"]).reshape(B, H, di // H, 4)
+    new = _slstm_cell(p, cfg, pre, state)
+    y = new["h"].reshape(B, 1, di).to(x.dtype)
+    return mm("wo", y), new
+
+
 # ------------------------------------------------------------------ LM
 
 def init_block_pair(generator: torch.Generator, cfg: ArchConfig, stack=()):
@@ -308,17 +350,87 @@ def add_rms_norm(x, y, w, eps: float = 1e-5):
     return h.to(x.dtype), cm.rms_norm(h, w, eps).to(x.dtype)
 
 
-def forward(params, cfg: ArchConfig, tokens):
-    """The training forward: (B, T) tokens -> (B, T, V) bf16 logits. The
-    reference scans over the pairs, so the residual it carries from pair
-    to pair is rounded to bf16, and only the sum inside a pair reaches its
-    norm unrounded (``add_rms_norm``)."""
-    x = tfm.embed_tokens(params, cfg, tokens)
+def _pairs_fwd(params, cfg: ArchConfig, x, states=None):
+    """The pairs over a whole sequence. The reference scans over them, so
+    the residual it carries from pair to pair is rounded to bf16, and only
+    the sum inside a pair reaches its norm unrounded (``add_rms_norm``).
+    ``states``: a list that receives each pair's final (mLSTM, sLSTM)
+    state."""
     for g in range(cfg.n_layers // 2):
         bp = pair(params, g)
+        keep = states is not None
         y = mlstm_fwd(bp["mlstm"], cfg,
-                      cm.rms_norm(x, bp["norm_m"], cfg.norm_eps))
+                      cm.rms_norm(x, bp["norm_m"], cfg.norm_eps),
+                      return_state=keep)
+        if keep:
+            y, mst = y
         x, xin = add_rms_norm(x, y, bp["norm_s"], cfg.norm_eps)
-        x = x + slstm_fwd(bp["slstm"], cfg, xin)
-    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        y = slstm_fwd(bp["slstm"], cfg, xin, return_state=keep)
+        if keep:
+            y, sst = y
+            states.append((mst, sst))
+        x = x + y
+    return cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def forward(params, cfg: ArchConfig, tokens):
+    """The training forward: (B, T) tokens -> (B, T, V) bf16 logits."""
+    x = _pairs_fwd(params, cfg, tfm.embed_tokens(params, cfg, tokens))
     return tfm.logits_head(params, cfg, x)
+
+
+# ------------------------------------------------------------------ serving
+
+def init_state(cfg: ArchConfig, batch: int, max_len: int = 0,
+               device="cuda"):
+    """Zero recurrent state of the G pairs (``max_len`` is unused: the state
+    does not grow with the sequence)."""
+    dev = resolve_device(device)
+    G, H = cfg.n_layers // 2, cfg.n_heads
+    dh = cfg.ssm_d_inner // H
+
+    def z(*s):
+        return torch.zeros((G, batch) + s, dtype=torch.float32, device=dev)
+    return {"mlstm": {"S": z(H, dh, dh), "n": z(H, dh), "m": z(H)},
+            "slstm": {"c": z(H, dh), "n": z(H, dh), "h": z(H, dh),
+                      "m": z(H, dh)},
+            "cur": 0}
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ArchConfig, cache, token):
+    """One decode step. token: (B, 1) integer. Returns (logits (B, 1, V),
+    cache): the state's tensors are updated in place and ``cur`` advances
+    by one. The residual adds and norms are taken as in ``forward``
+    (``add_rms_norm``), as the reference's jitted ``decode_step`` does."""
+    x = tfm.embed_tokens(params, cfg, token)
+    for g in range(cfg.n_layers // 2):
+        bp = pair(params, g)
+        mst = {k: v[g] for k, v in cache["mlstm"].items()}
+        sst = {k: v[g] for k, v in cache["slstm"].items()}
+        y, mst = mlstm_step(bp["mlstm"], cfg,
+                            cm.rms_norm(x, bp["norm_m"], cfg.norm_eps), mst)
+        x, xin = add_rms_norm(x, y, bp["norm_s"], cfg.norm_eps)
+        y, sst = slstm_step(bp["slstm"], cfg, xin, sst)
+        x = x + y
+        for name, new in (("mlstm", mst), ("slstm", sst)):
+            for k, v in new.items():
+                cache[name][k][g] = v
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return tfm.logits_head(params, cfg, x), {
+        "mlstm": cache["mlstm"], "slstm": cache["slstm"],
+        "cur": int(cache["cur"]) + 1}
+
+
+@torch.no_grad()
+def prefill(params, cfg: ArchConfig, tokens):
+    """Run the prompt; returns (last-position logits (B, 1, V), the state
+    after it, for ``decode_step``)."""
+    states = []
+    x = _pairs_fwd(params, cfg, tfm.embed_tokens(params, cfg, tokens),
+                   states)
+    logits = tfm.logits_head(params, cfg, x[:, -1:])
+    stack = {name: {k: torch.stack([s[i][k] for s in states])
+                    for k in states[0][i]}
+             for i, name in enumerate(("mlstm", "slstm"))}
+    return logits, {**stack, "cur": tokens.shape[1]}

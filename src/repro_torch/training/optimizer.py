@@ -64,13 +64,16 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 def tree_unflatten(like, leaves) -> Dict:
     """A nested dict shaped like ``like`` holding ``leaves`` in
     ``tree_leaves`` order."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
-    return build(like)
+
+def _build(node, it):
+    # module level, not a closure: a recursive closure is a reference cycle
+    # that would hold ``leaves`` (whole param and optimizer trees on the
+    # card) until the garbage collector runs
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def init_opt_state(params) -> Dict:

@@ -467,3 +467,85 @@ def test_checkpointed_beacon_search_resumes_on_the_card(dev, tmp_path):
     assert got.n_evals == want.n_evals
     assert got.beacon_search.n_retrains == want.beacon_search.n_retrains
     assert digests(got) == digests(want)
+
+
+def _reduced_moe(arch="qwen2-moe-a2.7b"):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config(arch).reduced()
+    return cfg, tfm.init_lm(0, cfg, "cpu")
+
+
+def _to(tree, dev):
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def test_moe_ffn_on_the_card_matches_cpu(dev):
+    """One layer's MoE FFN (reduced qwen2-moe: top-2 of 4 experts, a shared
+    expert, two groups of 24 tokens) on the card against the same call on
+    the CPU: the same routing, and the output within atol 0.02 (the CPU
+    tests' bound against the reference)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    cfg, params = _reduced_moe()
+    p = tfm.layer(params["blocks"], 0)["ffn"]
+    x = _rand(3, (2, 24, cfg.d_model)).to(torch.bfloat16)
+    got = cm.moe_ffn(_to(p, dev), x.to(dev), top_k=cfg.top_k,
+                     group_size=24)
+    want = cm.moe_ffn(p, x, top_k=cfg.top_k, group_size=24)
+    gates = [torch.softmax(x.to(d).float() @ p["router"].to(d), -1)
+             for d in (dev, "cpu")]
+    picks = [torch.topk(g, cfg.top_k, -1).indices.sort(-1).values.cpu()
+             for g in gates]
+    assert torch.equal(picks[0], picks[1])
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0,
+                               atol=0.02)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_tree_on_the_card_is_bitwise(dev, bits):
+    """``quantize_tree`` and ``dequantize_tree`` of the reduced qwen2-moe's
+    params on the card give the CPU's bits: codes, scales and weights."""
+    cfg, params = _reduced_moe()
+    spec = Q.tree_spec(params)
+    want = Q.quantize_tree(params, bits)
+    got = Q.quantize_tree(_to(params, dev), bits)
+    from repro_torch.training.optimizer import tree_leaves as leaves
+    flat_w = Q.dequantize_tree(want, spec, bits)
+    flat_g = Q.dequantize_tree(got, spec, bits)
+    for a, b in zip(leaves(got) + leaves(flat_g), leaves(want) + leaves(flat_w)):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu(), b)
+
+
+def test_launch_train_resumes_on_the_card(dev, tmp_path, capsys):
+    """``launch.train`` on the card (reduced granite-moe, 6 steps,
+    checkpoints at 3 and 6). With step 6's checkpoint deleted, a second run
+    resumes from step 3 and ends at the first run's final loss and step-6
+    state, bit for bit (the card's products are deterministic at fixed
+    shapes)."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_model
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+    ckpt = str(tmp_path / "ckpt")
+    argv = ["--arch", "granite-moe-1b-a400m", "--reduced", "--batch", "4",
+            "--seq", "16", "--log-every", "1", "--device", "cuda",
+            "--steps", "6", "--ckpt-dir", ckpt, "--ckpt-every", "3"]
+    full = train.main(argv)
+    template = ts.init_train_state(
+        get_model(get_config("granite-moe-1b-a400m").reduced(), dev), 0)
+    want, _ = ck.restore(ckpt, template)
+    shutil.rmtree(os.path.join(ckpt, "step_00000006"))
+    capsys.readouterr()
+    resumed = train.main(argv)
+    assert "[train] resumed from step 3" in capsys.readouterr().out
+    assert np.isfinite(full) and resumed == full
+    got, step = ck.restore(ckpt, template)
+    assert step == 6
+    for a, b in zip(opt.tree_leaves(got), opt.tree_leaves(want)):
+        assert a.device.type == "cuda" and torch.equal(a, b)

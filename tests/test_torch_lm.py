@@ -132,8 +132,9 @@ def test_flash_branch_and_moe_raise():
     q = torch.zeros((1, 9000, 2, 4), dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="queue 1, item 10"):
         TC.gqa_attention(q, q, q)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        TC.moe_ffn({}, q, top_k=2)
+    # the MoE FFN is ported (tests/test_torch_moe.py); the hybrid still raises
+    moe = TC.init_moe(torch.Generator().manual_seed(0), 4, 8, 2, 0)
+    assert TC.moe_ffn(moe, q[:, :3, 0], top_k=1).shape == (1, 3, 4)
     hybrid = ref_get_config("jamba-1.5-large-398b").reduced()
     with pytest.raises(NotImplementedError, match="hybrid"):
         TT.init_lm(0, TT.ArchConfig(**dataclasses.asdict(hybrid)), "cpu")
@@ -212,10 +213,11 @@ def test_registry_lm_model(model):
     logits2, cache = m.decode(tparams, cache, {"token": toks[:, :1]})
     assert logits2.shape == (B, 1, tcfg.padded_vocab) and cache["cur"] == \
         PROMPT + 1
-    # the ssm family (the xLSTM) is ported; the audio family is not yet
+    # the ssm family (the xLSTM) is ported, serving included; the audio
+    # family is not yet
     ssm = TREG.get_model(TT.ArchConfig(**dataclasses.asdict(
         ref_get_config("xlstm-350m").reduced())), "cpu")
-    assert ssm.cfg.family == "ssm" and ssm.prefill is None
+    assert ssm.cfg.family == "ssm" and ssm.prefill is not None
     with pytest.raises(NotImplementedError):
         TREG.get_model(TT.ArchConfig(**dataclasses.asdict(
             ref_get_config("seamless-m4t-medium").reduced())), "cpu")
