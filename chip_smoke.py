@@ -121,7 +121,30 @@ Phases, each printing JSON lines:
    bitwise the CPU's, the lazy per-layer dequantization bitwise
    ``dequantize_tree``'s. Then xlstm-350m's prefill + decode against its
    forward at full width (atol 0.2 at 4 layers; full depth recorded);
-10. timing: each kernel, its plain version and the PyTorch library call
+10. families: the audio, VLM and hybrid families at full width, seeded
+   random weights, each model freed before the next, its peak memory
+   printed. seamless-m4t-medium (12 + 12 layers): 40 AdamW steps of
+   ``make_train_step(get_model(cfg))`` on 8 x 512 random frames and
+   bigram decoder tokens (lr 3e-4 constant; the phase fails unless the
+   last 5 steps' mean loss is below the first 5's), then 4 x 1,000 frames
+   encoded and 32 greedy tokens, held to a teacher-forced ``forward`` on
+   them (atol 0.15). internvl2-26b (48 layers): ``Model.loss`` at batch 1
+   on 256 patch embeddings and 256 text tokens (finite, within 2.0 of
+   ln V), then a 4 x 512 prompt and 16 greedy steps with the dense head
+   and with the int8 head on ``quant_matmul``. jamba-1.5-large-398b cut
+   to one group of 8 layers (7 Mamba + 1 attention) and 4 experts: the
+   flash branch against the dense path at T 4,096 (atol 0.02); one Mamba
+   mixer on the card against the CPU lane on 256 tokens and against 512
+   ``mamba_step``s (atol 0.05); the reckoned peak (under 75 GB); a 1 x
+   10,240 prefill (the flash branch, 40 Mamba chunks) and 16 greedy steps
+   with the dense head and the int8 head; prefill + decode against
+   ``forward`` at ``MOE_CAPACITY_FACTOR`` 8.0 (atol 0.25). Every int8 head
+   run is held to the plain version on its own hidden state (rtol 1e-4 /
+   atol 1e-3) and ``quant_matmul`` must launch once per head run; after
+   the counts are read it is timed at both head shapes
+   (``QMM_FAMILY_SHAPES``: CUDA-graph device time, byte bound, plain
+   version, f32 ``matmul`` on the dequantized head);
+11. timing: each kernel, its plain version and the PyTorch library call
    (CUDA events, after warm-up) at the main paths' shapes and at the
    serving shapes; for the bank kernels the median and range of 5 repeats
    beside ``torch.bmm`` with and without its ``index_select`` gather and
@@ -138,8 +161,8 @@ Phases, each printing JSON lines:
    device times and ``host_ms`` the event-timed call (``ms_from`` says
    which).
 
-Each path (3, 4, 5, 6, 7, 8, 9) runs with the launch counts set to 0 just
-before it and read just after (phase 5: in the resumed child, around its
+Each path (3, 4, 5, 6, 7, 8, 9, 10) runs with the launch counts set to 0
+just before it and read just after (phase 5: in the resumed child, around its
 search; phase 8: around each of its two searches);
 the ``kernels`` line's ``launches`` add up those reads.
 The last line is ``{"ok": true, "device": {...}}``; a failed phase raises
@@ -248,6 +271,23 @@ MOE_TRAIN = dict(batch=8, seq=512, lr=3e-4, steps=40, resumed_steps=50,
 MOE_SERVE_ARCH = "qwen2-moe-a2.7b"
 MOE_SERVE = dict(batch=4, prompt=128, gen=16)
 XLSTM_DECODE = dict(batch=4, prompt=64, gen=16, checked_layers=4)
+# the families phase: seamless-m4t-medium trained (steps of batch x seq
+# tokens, lr constant, as moe_lm's trainer) and served (4 x 1,000 frames,
+# about 20 s of audio at 50 frames a second, then 32 greedy tokens) at full
+# width and depth; internvl2-26b's loss (256 patches + 256 text tokens)
+# and serving (4 x 512 + 16) at full width and depth; jamba-1.5-large-398b
+# at full width cut to one group of 8 layers and 4 of its 16 experts (one
+# 16-expert layer alone is 19.3 GB), a 10,240-token prefill (past
+# DENSE_ATTN_MAX) and 16 decode steps, with its card checks' sizes
+AUDIO = dict(arch="seamless-m4t-medium", batch=8, seq=512, lr=3e-4,
+             steps=40, serve_batch=4, frames=1000, gen=32)
+VLM = dict(arch="internvl2-26b", patches=256, text=256, batch=4, prompt=512,
+           gen=16)
+HYBRID = dict(arch="jamba-1.5-large-398b", layers=8, experts=4,
+              prompt=10240, gen=16, mamba_cpu_tokens=256, mamba_steps=512,
+              flash_check_T=4096, check_prompt=256, check_steps=17)
+# quant_matmul's (M, K, N) at the int8 heads of the families phase
+QMM_FAMILY_SHAPES = {"jamba": (1, 8192, 65536), "internvl2": (4, 6144, 92672)}
 TRAINED_DIR = "trained"       # the training checkpoint, under the work dir
 STORE_DIR = "search_store"    # the uninterrupted beacon run's SearchStore
 CHILD_TIMEOUT_S = 600
@@ -2361,6 +2401,498 @@ def phase_moe_lm(dev) -> dict:
     return counts
 
 
+# ------------------------------------------------------------- families
+
+def reset_peak():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.core.durable_io import flatten_tree
+    return sum(t.numel() * t.element_size()
+               for t in flatten_tree(tree).values())
+
+
+class RecordingHead:
+    """The int8 head as the path calls it, keeping each call's hidden
+    state and kernel output (``held_to_plain`` compares them afterwards
+    with the plain version, so no comparison launches the kernel)."""
+
+    def __init__(self, head):
+        self.head, self.runs = head, []
+
+    def __call__(self, hidden):
+        import torch
+        y = self.head(hidden)
+        self.runs.append((hidden.reshape(-1, hidden.shape[-1]).to(
+            torch.float32), y.reshape(-1, y.shape[-1])))
+        return y
+
+    def held_to_plain(self) -> dict:
+        """Every run's kernel output against ``quant_matmul_ref`` on the
+        same hidden state: rtol 1e-4 / atol 1e-3 (raises otherwise)."""
+        import torch
+        from repro_torch.kernels import ref
+        worst = 0.0
+        for h, y in self.runs:
+            want = ref.quant_matmul_ref(h, self.head.packed, self.head.scales,
+                                        self.head.bits)
+            torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-3)
+            worst = max(worst, errs(y, want)[0])
+            del want
+        return {"head_runs": len(self.runs), "shape": [
+            self.runs[0][0].shape[0], *self.head.packed.shape],
+            "max_abs_err": worst, "tol": "rtol 1e-4, atol 1e-3"}
+
+
+def greedy(prefill, decode, gen):
+    """``prefill()`` -> (logits, cache), then ``gen`` greedy steps of
+    ``decode(cache, token)`` -> (logits, cache). Returns (tokens (B, gen +
+    1), every step's last-position f32 logits (B, gen + 1, V), prefill s,
+    median decode ms a step)."""
+    import numpy as np
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    toks, outs, step_ms = [tok], [logits[:, -1].float()], []
+    for _ in range(gen):
+        t = time.perf_counter()
+        logits, cache = decode(cache, tok)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        toks.append(tok)
+        outs.append(logits[:, -1].float())
+    out = torch.stack(outs, 1)
+    if not torch.isfinite(out).all():
+        raise AssertionError("families: non-finite logits in decode")
+    return torch.cat(toks, 1), out, prefill_s, float(np.median(step_ms))
+
+
+def lm_greedy(params, cfg, prompt, gen, head_fn=None):
+    """``greedy`` through ``transformer.prefill`` / ``decode_step`` with the
+    output head ``head_fn`` (dense when None)."""
+    from repro_torch.models import transformer as tfm
+    return greedy(
+        lambda: tfm.prefill(params, cfg, prompt,
+                            max_len=prompt.shape[1] + gen, head_fn=head_fn),
+        lambda cache, tok: tfm.decode_step(params, cfg, cache, tok,
+                                           head_fn=head_fn), gen)
+
+
+def decode_vs_forward(logits, full, atol) -> dict:
+    """Each prefill / decode step's logits (B, n, V) against the forward's at
+    the same positions (B, n, V): the largest difference a position."""
+    by_pos = (logits.float() - full.float()).abs().amax(dim=(0, 2))
+    return {"max_abs_err": float(by_pos.max()), "atol": atol,
+            "err_by_position": [float(e) for e in by_pos],
+            "logit_max": float(full.float().abs().max())}
+
+
+def audio_family(dev) -> dict:
+    """seamless-m4t-medium at full width and depth, seeded random weights
+    drawn on the card: ``AUDIO["steps"]`` AdamW steps of
+    ``make_train_step(get_model(cfg))`` on random frames and bigram decoder
+    tokens (the loss's last-5 mean must fall below its first-5); then
+    ``Model.prefill`` on 4 x 1,000 frames and 32 greedy decode steps, held
+    to a teacher-forced ``encdec.forward`` on the chosen tokens (atol
+    0.15)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import get_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    cfg = get_config(AUDIO["arch"])
+    model = get_model(cfg, dev)
+    held = reset_peak()
+    state = ts.init_train_state(model, 0)
+    ocfg = opt.AdamWConfig(lr=AUDIO["lr"], schedule="constant",
+                           warmup_steps=max(AUDIO["steps"] // 20, 1),
+                           total_steps=AUDIO["steps"])
+    step = ts.make_train_step(model, ocfg)
+    B, S = AUDIO["batch"], AUDIO["seq"]
+    data = synthetic.lm_batches(cfg.vocab_size, B, S, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    losses, step_ms = [], []
+    for _ in range(AUDIO["steps"]):
+        b = next(data)
+        batch = {"frames": torch.randn((B, S, cfg.frontend_dim), generator=g,
+                                       device=dev).to(torch.bfloat16),
+                 "dec_tokens": b["tokens"], "labels": b["labels"]}
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    train_peak = torch.cuda.max_memory_allocated()
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    train = {"steps": AUDIO["steps"], "batch": B, "seq": S, "lr": AUDIO["lr"],
+             "loss": losses, "first_5_mean": head, "last_5_mean": tail,
+             "step_ms_median": float(np.median(step_ms[1:])),
+             "step_ms_first": step_ms[0],
+             "tokens_per_s": B * S / (float(np.median(step_ms[1:])) / 1e3),
+             "max_memory_allocated": train_peak}
+    emit({"phase": "families", "audio_train": train})
+    if not np.isfinite(losses).all() or not tail < head:
+        raise AssertionError(f"families audio training: the last 5 steps' "
+                             f"mean loss {tail} is not below the first 5's "
+                             f"{head} (or not finite)")
+    params = state["params"]
+    del state, metrics, batch
+    reset_peak()
+    SB, T, G = AUDIO["serve_batch"], AUDIO["frames"], AUDIO["gen"]
+    frames = torch.randn((SB, T, cfg.frontend_dim), generator=g,
+                         device=dev).to(torch.bfloat16)
+    toks, logits, prefill_s, ms = greedy(
+        lambda: model.prefill(params, {"frames": frames, "max_len": G + 1}),
+        lambda cache, tok: model.decode(params, cache, {"token": tok}), G)
+    with torch.no_grad():
+        bos = torch.zeros((SB, 1), dtype=toks.dtype, device=dev)
+        full = encdec.forward(params, cfg, frames,
+                              torch.cat([bos, toks[:, :-1]], 1))
+    check = decode_vs_forward(logits, full, 0.15)
+    serve = {"batch": SB, "frames": T, "decode_steps": G,
+             "prefill_s": prefill_s, "decode_ms_per_token": ms,
+             "decode_vs_forward": check,
+             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit({"phase": "families", "audio_serve": serve})
+    if not check["max_abs_err"] <= 0.15:
+        raise AssertionError(f"families audio: prefill + decode is off the "
+                             f"teacher-forced forward: {check}")
+    out = {"model": cfg.name, "params": cfg.n_params(),
+           "weight_bytes": tree_bytes(params), "memory_before": held,
+           "train": train, "serve": serve}
+    del params, full, logits
+    return out
+
+
+def vlm_family(dev) -> dict:
+    """internvl2-26b at full width and depth, seeded random bf16 weights:
+    ``Model.loss`` under ``no_grad`` at batch 1 on 256 patch embeddings and
+    256 bigram text tokens (finite, within 2.0 of ln V); then a 4 x 512
+    prompt and 16 greedy decode steps with the dense head and with the int8
+    head on ``quant_matmul`` (every head run held to the plain version)."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving import lm
+
+    cfg = get_config(VLM["arch"])
+    model = get_model(cfg, dev)
+    held = reset_peak()
+    t = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    g = torch.Generator(device=dev).manual_seed(4)
+    b = synthetic.lm_batch(cfg.vocab_size, 1, VLM["text"], device=dev)
+    batch = {"tokens": b["tokens"], "labels": b["labels"],
+             "patch_embeds": torch.randn(
+                 (1, VLM["patches"], cfg.d_model), generator=g,
+                 device=dev).to(torch.bfloat16)}
+    with torch.no_grad():
+        t = time.perf_counter()
+        loss = float(model.loss(params, batch))
+        torch.cuda.synchronize()
+        loss_s = time.perf_counter() - t
+    ln_v = math.log(cfg.vocab_size)
+    out = {"model": cfg.name, "params": cfg.n_params(),
+           "weight_bytes": tree_bytes(params), "init_s": init_s,
+           "memory_before": held,
+           "loss": {"value": loss, "ln_vocab": ln_v, "seconds": loss_s,
+                    "patches": VLM["patches"], "text_tokens": VLM["text"]}}
+    if not (math.isfinite(loss) and abs(loss - ln_v) <= 2.0):
+        raise AssertionError(f"families vlm: loss {loss} is not within 2.0 "
+                             f"of ln V = {ln_v}")
+    prompt = torch.randint(0, cfg.vocab_size, (VLM["batch"], VLM["prompt"]),
+                           generator=g, device=dev)
+    head = RecordingHead(lm.int8_head(params, cfg))
+    dense, _, d_prefill, d_ms = lm_greedy(params, cfg, prompt, VLM["gen"])
+    quant, _, q_prefill, q_ms = lm_greedy(params, cfg, prompt, VLM["gen"],
+                                          head_fn=head)
+    out["serve"] = {
+        "batch": VLM["batch"], "prompt": VLM["prompt"],
+        "decode_steps": VLM["gen"], "int8_head_bytes": head.head.nbytes,
+        "dense": {"prefill_s": d_prefill, "decode_ms_per_token": d_ms},
+        "int8": {"prefill_s": q_prefill, "decode_ms_per_token": q_ms},
+        "token_agreement": float((quant == dense).float().mean()),
+        "first_token_agreement": float((quant[:, 0] == dense[:, 0]).float()
+                                       .mean())}
+    out["head_vs_plain"] = head.held_to_plain()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit({"phase": "families", "vlm": out})
+    del params, head
+    return out
+
+
+def moe_buffer_bytes(cfg, tokens: int, capacity_factor: float) -> int:
+    """Device bytes one ``moe_ffn`` call holds at once on ``tokens`` tokens:
+    the f32 gate and up weights, the dispatched rows (bf16, and f32), the
+    gate and up products, their SiLU and product (f32) and the bf16 hidden
+    state, over every expert's ``groups * capacity`` rows."""
+    import math
+    from repro_torch.models import common as cm
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_ff
+    S = min(cm.MOE_GROUP_SIZE, tokens)
+    rows = -(-tokens // S) * max(1, math.ceil(S * cfg.top_k
+                                              * capacity_factor / E))
+    return 2 * E * D * F * 4 + E * rows * (D * 6 + F * 4 * 4 + F * 2)
+
+
+def mamba_checks(params, cfg, dev) -> dict:
+    """At full width, on group 0's first Mamba mixer: ``mamba_fwd`` on 256
+    seeded tokens on the card against the port's CPU lane (output and state
+    within atol 0.05), and ``mamba_fwd`` against 512 ``mamba_step``s on the
+    card (atol 0.05, the reference's bound)."""
+    import torch
+    from repro_torch.models import common as cm
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import transformer as tfm
+    p = tfm.mamba_layer(params["mamba_blocks"], 0, 0)["mamba"]
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((1, HYBRID["mamba_steps"], cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    n = HYBRID["mamba_cpu_tokens"]
+    got, st = mb.mamba_fwd(p, cfg, x[:, :n], return_state=True)
+    p_cpu = cm.tree_map(lambda t: t.cpu(), p)
+    want, st_cpu = mb.mamba_fwd(p_cpu, cfg, x[:, :n].cpu(), return_state=True)
+    vs_cpu = {"tokens": n, "atol": 0.05,
+              "max_abs_err": float((got.cpu().float() - want.float()).abs()
+                                   .max()),
+              "state_h_max_abs_err": float((st["h"].cpu() - st_cpu["h"])
+                                           .abs().max()),
+              "state_conv_max_abs_err": float(
+                  (st["conv"].cpu().float() - st_cpu["conv"].float())
+                  .abs().max())}
+    full, fst = mb.mamba_fwd(p, cfg, x, return_state=True)
+    state = {"h": torch.zeros_like(fst["h"]),
+             "conv": torch.zeros_like(fst["conv"])}
+    worst = 0.0
+    with torch.no_grad():
+        for t in range(x.shape[1]):
+            y, state = mb.mamba_step(p, cfg, x[:, t:t + 1], state)
+            worst = max(worst, float((y[:, 0].float() - full[:, t].float())
+                                     .abs().max()))
+    stepped = {"steps": x.shape[1], "atol": 0.05, "max_abs_err": worst,
+               "state_h_max_abs_err": float((state["h"] - fst["h"]).abs()
+                                            .max()),
+               "out_max": float(full.float().abs().max())}
+    out = {"mamba_vs_cpu": vs_cpu, "chunked_vs_stepped": stepped}
+    bad = [k for k, v in out.items() if not (
+        v["max_abs_err"] <= 0.05 and v["state_h_max_abs_err"] <= 0.05)]
+    if bad:
+        raise AssertionError(f"families hybrid Mamba checks failed: {out}")
+    return out
+
+
+def flash_check(cfg, dev) -> dict:
+    """The flash-style branch (forced by ``dense_max`` 1,024) against the
+    dense path at the hybrid's head geometry, B 1, T 4,096, causal:
+    atol 0.02."""
+    import torch
+    from repro_torch.models import common as cm
+    T = HYBRID["flash_check_T"]
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((1, T, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, T, cfg.n_kv_heads, cfg.head_dim), generator=g,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    flash = cm.gqa_attention(q, k, v, dense_max=1024)
+    torch.cuda.synchronize()
+    flash_s = time.perf_counter() - t
+    t = time.perf_counter()
+    dense = cm.gqa_attention(q, k, v)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t
+    out = {"T": T, "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "atol": 0.02, "flash_s": flash_s, "dense_s": dense_s,
+           "max_abs_err": float((flash.float() - dense.float()).abs().max())}
+    if not out["max_abs_err"] <= 0.02:
+        raise AssertionError(f"families: flash branch off the dense path: "
+                             f"{out}")
+    return out
+
+
+def hybrid_family(dev) -> dict:
+    """jamba-1.5-large-398b at full width, cut to one group of 8 layers (7
+    Mamba + 1 attention) and 4 experts (memory: one 16-expert layer is 19.3
+    GB), seeded random bf16 weights drawn a layer at a time: the flash
+    branch against the dense path; the Mamba checks; a 1 x 10,240 prefill
+    (past ``DENSE_ATTN_MAX``: the attention layer runs the flash branch;
+    40 Mamba chunks) and 16 greedy decode steps with the dense head and
+    with the int8 head on ``quant_matmul`` (every head run held to the plain
+    version); then, at ``MOE_CAPACITY_FACTOR`` 8.0, prefill + decode
+    against ``forward`` (atol 0.25, the reference's hybrid bound)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import lm
+
+    full_cfg = get_config(HYBRID["arch"])
+    cfg = dataclasses.replace(full_cfg, n_layers=HYBRID["layers"],
+                              n_experts=HYBRID["experts"])
+    held = reset_peak()
+    out = {"model": full_cfg.name, "cuts": {
+        "layers": [full_cfg.n_layers, cfg.n_layers],
+        "experts": [full_cfg.n_experts, cfg.n_experts]},
+        "params": cfg.n_params(), "full_params": full_cfg.n_params(),
+        "memory_before": held, "flash_vs_dense": flash_check(cfg, dev)}
+    P = HYBRID["prompt"]
+    weights = 2 * cfg.n_params()           # every leaf bf16 but a few f32
+    reckoned = {"weights": weights, "moe_call": moe_buffer_bytes(
+        cfg, P, cm.MOE_CAPACITY_FACTOR), "held": held}
+    reckoned["total"] = sum(reckoned.values())
+    out["reckoned_peak_bytes"] = reckoned
+    if reckoned["total"] > 75e9:
+        raise AssertionError(f"families hybrid: reckoned peak {reckoned}")
+    reset_peak()
+    t = time.perf_counter()
+    params = tfm.init_lm(0, cfg, dev)
+    torch.cuda.synchronize()
+    out.update(init_s=time.perf_counter() - t,
+               weight_bytes=tree_bytes(params))
+    out["mamba"] = mamba_checks(params, cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (1, P), generator=g,
+                           device=dev)
+    head = RecordingHead(lm.int8_head(params, cfg))
+    dense, _, d_prefill, d_ms = lm_greedy(params, cfg, prompt, HYBRID["gen"])
+    quant, _, q_prefill, q_ms = lm_greedy(params, cfg, prompt,
+                                          HYBRID["gen"], head_fn=head)
+    out["serve"] = {
+        "batch": 1, "prompt": P, "decode_steps": HYBRID["gen"],
+        "dense": {"prefill_s": d_prefill, "decode_ms_per_token": d_ms},
+        "int8": {"prefill_s": q_prefill, "decode_ms_per_token": q_ms},
+        "token_agreement": float((quant == dense).float().mean()),
+        "first_token_agreement": float((quant[:, 0] == dense[:, 0]).float()
+                                       .mean()),
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    out["head_vs_plain"] = head.held_to_plain()
+    del head
+    saved = cm.MOE_CAPACITY_FACTOR
+    cm.MOE_CAPACITY_FACTOR = 8.0
+    try:
+        n, steps = HYBRID["check_prompt"], HYBRID["check_steps"]
+        toks = torch.randint(0, cfg.vocab_size, (1, n + steps), generator=g,
+                             device=dev)
+        with torch.no_grad():
+            full = tfm.forward(params, cfg, toks)
+        logits, cache = tfm.prefill(params, cfg, toks[:, :n],
+                                    max_len=n + steps)
+        outs = [logits[:, -1]]
+        for i in range(n, n + steps - 1):
+            logits, cache = tfm.decode_step(params, cfg, cache,
+                                            toks[:, i:i + 1])
+            outs.append(logits[:, -1])
+        check = decode_vs_forward(torch.stack(outs, 1),
+                                  full[:, n - 1:n + steps - 1], 0.25)
+    finally:
+        cm.MOE_CAPACITY_FACTOR = saved
+    out["decode_vs_forward"] = {"prompt": n, "decode_steps": steps - 1,
+                                "capacity_factor": 8.0, **check}
+    emit({"phase": "families", "hybrid": out})
+    if not check["max_abs_err"] <= 0.25:
+        raise AssertionError(f"families hybrid: prefill + decode is off "
+                             f"forward: {check}")
+    del params, cache, full
+    return out
+
+
+def time_new_heads(dev) -> list:
+    """``quant_matmul`` int8 at the hybrid's and the VLM's head shapes
+    (``QMM_FAMILY_SHAPES``) on seeded heads: against its plain version
+    (rtol 1e-4 / atol 1e-3), then the CUDA-graph device time beside the
+    byte bound, the plain version and the f32 ``matmul`` on the
+    dequantized head."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    rows = []
+    for name, shape in QMM_FAMILY_SHAPES.items():
+        x, packed, scales = qmm_inputs(shape, 8, 30, dev)
+        got = ops.quant_matmul(x, packed, scales, 8)
+        want = ref.quant_matmul_ref(x, packed, scales, 8)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+        w_deq = (ref.unpack_weights(packed, 8, shape[1]).to(torch.float32)
+                 * scales[None, :])
+        b, by = bound_ms(*qmm_cost(shape, packed))
+
+        def call():
+            ops.quant_matmul(x, packed, scales, 8)
+
+        graph = graph_ms(call)
+        row = {"name": "quant_matmul", "head": name, "shape": shape,
+               "bits": 8, "max_abs_err": errs(got, want)[0],
+               "ms": graph["median"], "graph_ms": graph,
+               "host_ms": cuda_ms_stats(call, 20)["median"],
+               "plain_ms": cuda_ms(lambda: ref.quant_matmul_ref(
+                   x, packed, scales, 8), 5),
+               "bound_ms": b, "bound_by": by,
+               "library_ms": graph_ms(lambda: torch.matmul(x, w_deq))[
+                   "median"]}
+        row["share_of_bound"] = b / row["ms"]
+        emit({"phase": "families", "qmm_timing": row})
+        rows.append(row)
+        del w_deq, x, packed, scales
+    return rows
+
+
+def phase_families(dev):
+    """The audio, VLM and hybrid families at full width (``audio_family``,
+    ``vlm_family``, ``hybrid_family``), each freed before the next; the
+    launch counts are read over the three, then ``quant_matmul`` is timed
+    at the two new head shapes. Returns (counts, the timing rows)."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    audio = audio_family(dev)
+    vlm = vlm_family(dev)
+    hybrid = hybrid_family(dev)
+    counts = ops.launch_counts()
+    seconds = time.perf_counter() - t0
+    reset_peak()
+    heads = time_new_heads(dev)
+    runs = vlm["head_vs_plain"]["head_runs"] \
+        + hybrid["head_vs_plain"]["head_runs"]
+    emit({"phase": "families", "seconds": seconds, "launches": counts,
+          "int8_head_runs": runs, "card": torch.cuda.get_device_name(0),
+          "audio_train_step_ms": audio["train"]["step_ms_median"],
+          "audio_decode_ms_per_token": audio["serve"]["decode_ms_per_token"],
+          "vlm_decode_ms_per_token": {
+              k: vlm["serve"][k]["decode_ms_per_token"]
+              for k in ("dense", "int8")},
+          "hybrid_prefill_s": hybrid["serve"]["int8"]["prefill_s"],
+          "hybrid_decode_ms_per_token": {
+              k: hybrid["serve"][k]["decode_ms_per_token"]
+              for k in ("dense", "int8")},
+          "peak_bytes": {"audio": max(audio["train"]["max_memory_allocated"],
+                                      audio["serve"]["max_memory_allocated"]),
+                         "vlm": vlm["max_memory_allocated"],
+                         "hybrid": hybrid["serve"]["max_memory_allocated"]}})
+    if counts["quant_matmul"] != runs:
+        raise AssertionError(f"quant_matmul launched {counts['quant_matmul']}"
+                             f" times, expected one per int8 head run "
+                             f"({runs})")
+    return counts, heads
+
+
 def time_xlstm_mxvs(dev):
     """``bank_mxv_pop`` at the xLSTM's MxV shapes (``XLSTM_MXV_SHAPES``,
     seeded inputs drawn on the card, rows built as the target builds them)
@@ -2657,6 +3189,10 @@ def main() -> int:
         paths = [beacon_counts, phase_resume(target, work, run)]
     paths += [phase_lm_serve(dev), phase_front_serve(dev, target),
               phase_xlstm_search(dev), phase_moe_lm(dev)]
+    family_counts, family_heads = phase_families(dev)
+    paths.append(family_counts)
+    max_err["quant_matmul"] = max([max_err["quant_matmul"]] + [
+        r["max_abs_err"] for r in family_heads])
     for path_counts in paths:
         counts = {k: counts[k] + path_counts[k] for k in counts}
     kernels = phase_timing(dev, max_err, counts, smi_line, target)

@@ -1,4 +1,5 @@
-"""Model configurations of the port: ``get_config(arch_id)``."""
+"""Model configurations of the port: ``get_config(arch_id)``, every
+architecture of the reference package."""
 import importlib
 
 _MODULES = {
@@ -10,14 +11,9 @@ _MODULES = {
     "deepseek-67b": "deepseek_67b",
     "xlstm-350m": "xlstm_350m",
     "sru_timit": "sru_timit",
-}
-
-# the reference's other architectures, and the ROADMAP.md queue-1 item that
-# ports their families
-_WAITING = {
-    "jamba-1.5-large-398b": "item 10 (hybrid Mamba/attention)",
-    "internvl2-26b": "item 10 (VLM frontend)",
-    "seamless-m4t-medium": "item 10 (encoder-decoder)",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "internvl2-26b": "internvl2_26b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 
@@ -25,7 +21,4 @@ def get_config(arch_id: str):
     if arch_id in _MODULES:
         return importlib.import_module(
             f"repro_torch.configs.{_MODULES[arch_id]}").CONFIG
-    if arch_id in _WAITING:
-        raise KeyError(f"arch {arch_id!r} is not ported yet: ROADMAP.md "
-                       f"queue 1, {_WAITING[arch_id]}")
     raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(_MODULES)}")

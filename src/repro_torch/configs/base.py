@@ -3,10 +3,10 @@
 Copy of ``ArchConfig`` from the reference package's ``configs/base.py``
 (which imports no JAX, but the port imports nothing of the reference). Every
 architecture is a frozen ``ArchConfig``; ``reduced()`` gives a miniature of
-the same family for the CPU tests. The port runs the dense and MoE
-families (``models/transformer.py``) and the ssm family
-(``models/xlstm.py``); the other families' fields are kept so that
-``n_params`` and ``reduced`` agree with the reference for every config.
+the same family for the CPU tests. The port runs every family: dense,
+MoE, VLM and hybrid (``models/transformer.py``, with ``models/mamba.py``),
+ssm (``models/xlstm.py``), audio (``models/encdec.py``) and the SRU
+(``models/sru.py``).
 Input shapes are ``ShapeConfig`` entries; ``models/registry.py::
 input_specs`` turns an (arch, shape) cell into shapes and dtypes.
 """

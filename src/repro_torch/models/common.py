@@ -1,5 +1,6 @@
-"""Shared language-model primitives: RMSNorm, RoPE, dense GQA attention,
-the gated MLP and the mixture-of-experts FFN.
+"""Shared language-model primitives: RMSNorm, RoPE, GQA attention (dense,
+and flash-style past ``DENSE_ATTN_MAX``), the gated MLP and the
+mixture-of-experts FFN.
 
 Port of the reference package's ``models/common.py``.
 Params are nested dicts of tensors in the reference's layout (heads kept as
@@ -17,10 +18,6 @@ bf16 between layers, as there. The reference's matmuls take
 On the card run these with TF32 and reduced-precision bf16 reductions off
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
 ``allow_bf16_reduced_precision_reduction = False``).
-
-Not ported yet (ROADMAP.md queue 1, item 10): the flash-style attention
-branch for sequences longer than ``DENSE_ATTN_MAX``; it raises
-``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,7 +35,6 @@ DENSE_ATTN_MAX = 8192   # the reference's limit of its materialized-score path
 MOE_GROUP_SIZE = 1024
 MOE_DISPATCH = "einsum"
 MOE_CAPACITY_FACTOR = 1.25
-_NOT_PORTED = "ROADMAP.md queue 1, item 10"
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -138,27 +134,91 @@ def _attn_block(q, k, v, qpos, kpos, kv_valid):
 def gqa_attention(q, k, v, *, q_offset=0, kv_valid=None,
                   chunk_q: int = 512, chunk_k: int = 1024,
                   causal: bool = True, dense_max: Optional[int] = None):
-    """GQA attention with materialized scores. q: (B, Tq, H, d); k, v:
-    (B, Tk, KV, d); each of KV kv-heads serves G = H // KV query heads.
-    ``q_offset`` is the first query's position and ``kv_valid`` the number
-    of valid cache rows (decode attends over the whole cache and masks the
-    rest). Sequences past ``dense_max`` need the reference's flash-style
-    branch, which is not ported."""
+    """GQA attention. q: (B, Tq, H, d); k, v: (B, Tk, KV, d); each of KV
+    kv-heads serves G = H // KV query heads. ``q_offset`` is the first
+    query's position and ``kv_valid`` the number of valid cache rows
+    (decode attends over the whole cache and masks the rest).
+
+    Two regimes, as in the reference: up to ``dense_max`` (or within one
+    chunk each way) the scores are materialized (``_attn_block``, the
+    differentiable training path); past it the flash-style branch
+    (``_flash_attention``) walks q-chunks and kv-chunks with an online
+    softmax, the forward-only long-prefill path."""
     B, Tq, H, d = q.shape
     _, Tk, KV, _ = k.shape
     G = H // KV
+    qg = q.reshape(B, Tq, KV, G, d)
     dense_max = DENSE_ATTN_MAX if dense_max is None else dense_max
     if not ((Tq <= chunk_q and Tk <= chunk_k) or max(Tq, Tk) <= dense_max):
-        raise NotImplementedError(
-            f"flash-style attention for Tq={Tq}, Tk={Tk} > {dense_max} is "
-            f"not ported ({_NOT_PORTED})")
-    qg = q.reshape(B, Tq, KV, G, d)
+        return _flash_attention(qg, k, v, q_offset, kv_valid, chunk_q,
+                                chunk_k, causal).to(q.dtype)
     qpos = q_offset + torch.arange(Tq, device=q.device)
     kpos = torch.arange(Tk, device=q.device)
     if not causal:
         qpos = torch.full((Tq,), Tk, device=q.device)     # everything visible
     o = _attn_block(qg, k, v, qpos, kpos, kv_valid)
     return o.reshape(B, Tq, H, d).to(q.dtype)
+
+
+def _flash_attention(qg, k, v, q_offset, kv_valid, chunk_q, chunk_k,
+                     causal):
+    """The reference's flash-style branch. qg: (B, Tq, KV, G, d); k, v:
+    (B, Tk, KV, d). Tq and Tk are zero-padded to chunk multiples; for each
+    q-chunk the kv-chunks are walked in order with the running max ``m``
+    and sum ``l`` in f32 (``-1e30`` marks a masked score, and ``m`` starts
+    there), ``p`` rounded to v's dtype before the PV product (f32 sums),
+    padded keys masked by ``valid``; the output is ``acc / max(l,
+    1e-30)``. Returns (B, Tq, H, d) f32."""
+    B, Tq, KV, G, d = qg.shape
+    Tk = k.shape[1]
+    nq, nk = -(-Tq // chunk_q), -(-Tk // chunk_k)
+    pq, pk = nq * chunk_q - Tq, nk * chunk_k - Tk
+    F = torch.nn.functional
+    if pq:
+        qg = F.pad(qg, (0, 0, 0, 0, 0, 0, 0, pq))
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+        valid = Tk if kv_valid is None else kv_valid
+    else:
+        valid = kv_valid
+    scale = 1.0 / math.sqrt(d)
+    dev = qg.device
+    out = torch.empty((B, nq * chunk_q, KV, G, d), dtype=torch.float32,
+                      device=dev)
+    for qi in range(nq):
+        qchunk = qg[:, qi * chunk_q:(qi + 1) * chunk_q].to(torch.float32)
+        qpos = q_offset + qi * chunk_q + torch.arange(chunk_q, device=dev)
+        m = torch.full((B, KV, G, chunk_q), -1e30, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, KV, G, chunk_q), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KV, G, chunk_q, d), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            kch = k[:, ki * chunk_k:(ki + 1) * chunk_k]
+            vch = v[:, ki * chunk_k:(ki + 1) * chunk_k]
+            kpos = ki * chunk_k + torch.arange(chunk_k, device=dev)
+            s = torch.einsum("btkgd,bskd->bkgts", qchunk,
+                             kch.to(torch.float32)) * scale
+            mask = None
+            if causal:
+                mask = kpos[None, :] <= qpos[:, None]
+            if valid is not None:
+                vmask = (kpos < valid)[None, :]
+                mask = vmask if mask is None else mask & vmask
+            if mask is not None:
+                s = s.masked_fill(~mask[None, None, None], -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgts,bskd->bkgtd", p.to(vch.dtype).to(torch.float32),
+                vch.to(torch.float32))
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]     # (B,KV,G,Cq,d)
+        out[:, qi * chunk_q:(qi + 1) * chunk_q] = o.permute(0, 3, 1, 2, 4)
+    return out[:, :Tq].reshape(B, Tq, KV * G, d)
 
 
 def init_attn(generator, d_model, n_heads, n_kv_heads, head_dim,

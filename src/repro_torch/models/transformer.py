@@ -1,9 +1,8 @@
-"""Decoder-only LM (dense and MoE families): init, forward, prefill and
-decode with a KV cache.
+"""Decoder-only LM (dense, MoE, VLM and hybrid families): init, forward,
+prefill and decode with a KV cache.
 
-Port of the dense and MoE families of the reference package's
-``models/transformer.py``. Layers are stacked on a leading axis, as in the
-reference's params (``params["blocks"]["attn"]["wq"]`` is (L, D, H, hd),
+Port of the reference package's ``models/transformer.py``. Layers are
+stacked on a leading axis, as in the reference's params (``params["blocks"]["attn"]["wq"]`` is (L, D, H, hd),
 ``params["blocks"]["ffn"]["w_gate"]`` of an MoE is (L, E, D, F)), so
 ``params_from_numpy`` carries its weights across unchanged; a Python loop
 over the stack takes the place of ``lax.scan``, and ``layer(blocks, i)``
@@ -15,10 +14,18 @@ keeps a stacked KV cache, (L, B, max_len, KV, hd), in ``KV_CACHE_DTYPE``
 ``head_fn(hidden) -> logits`` replaces the dense output head, e.g. with
 the quantized head of ``serving/lm.py``.
 
-Not ported yet (ROADMAP.md queue 1, item 10): the hybrid (Jamba) family.
+The hybrid (Jamba) family groups its layers by ``cfg.attn_period`` = P:
+each of the G = L / P groups runs P - 1 Mamba blocks (``models/mamba.py``)
+and then one attention block, every block with its MLP or MoE FFN. Its
+params keep the reference's stacks, ``params["mamba_blocks"]`` (G, P - 1,
+...) and ``params["attn_blocks"]`` (G, ...) (``mamba_layer(blocks, g, j)``
+reads one Mamba block), and its cache adds the Mamba states, ``ssm``:
+``h`` (G, P - 1, B, d_inner, N) f32 and ``conv`` (G, P - 1, B, K - 1,
+d_inner) bf16.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Dict, Optional
 
@@ -28,9 +35,9 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
+from repro_torch.models import mamba as mb
 
 Params = Dict[str, Any]
-_NOT_PORTED = "ROADMAP.md queue 1, item 10"
 
 # The KV cache's storage dtype (read when a cache is made), and the fixed
 # symmetric scale of an int8 cache: the reference's decode lever, which
@@ -40,9 +47,14 @@ KV_CACHE_SCALE = 1.0 / 16.0
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "moe"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
-                                  f"not ported ({_NOT_PORTED})")
+    if cfg.family not in ("dense", "vlm", "moe", "hybrid"):
+        raise ValueError(f"{cfg.name}: the {cfg.family} family is not a "
+                         f"decoder-only LM (see models/registry.py)")
+
+
+def _groups(cfg: ArchConfig):
+    """The hybrid's (G, P): groups and layers a group."""
+    return cfg.n_layers // cfg.attn_period, cfg.attn_period
 
 
 def _cache_store(val, cache_dtype):
@@ -63,22 +75,54 @@ def _cache_load(val, like_dtype):
 
 # ------------------------------------------------------------------ blocks
 
-def init_block(generator, cfg: ArchConfig, layers: int) -> Params:
-    """``layers`` stacked attention blocks: norms, attention, and an MLP or
-    (``cfg.n_experts``) an MoE FFN."""
-    ones = torch.ones((layers, cfg.d_model), dtype=torch.float32,
+def init_block(generator, cfg: ArchConfig, layers, kind: str = "attn"
+               ) -> Params:
+    """Stacked blocks (``layers``: their count, or the stack's shape): norms,
+    the mixer (``kind`` "attn": attention; "mamba": a Mamba mixer), and an
+    MLP or (``cfg.n_experts``) an MoE FFN."""
+    st = (layers,) if isinstance(layers, int) else tuple(layers)
+    ones = torch.ones(st + (cfg.d_model,), dtype=torch.float32,
                       device=generator.device)
-    p = {"norm1": ones, "norm2": ones.clone(),
-         "attn": cm.init_attn(generator, cfg.d_model, cfg.n_heads,
-                              cfg.n_kv_heads, cfg.head_dim, stack=(layers,))}
+    p = {"norm1": ones, "norm2": ones.clone()}
+    if kind == "attn":
+        p["attn"] = cm.init_attn(generator, cfg.d_model, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.head_dim, stack=st)
+    elif kind == "mamba":
+        p["mamba"] = mb.init_mamba(generator, cfg, stack=st)
+    else:
+        raise ValueError(kind)
     if cfg.n_experts:
         p["ffn"] = cm.init_moe(generator, cfg.d_model, cfg.moe_ff,
-                               cfg.n_experts, cfg.n_shared_experts,
-                               stack=(layers,))
+                               cfg.n_experts, cfg.n_shared_experts, stack=st)
     else:
-        p["ffn"] = cm.init_mlp(generator, cfg.d_model, cfg.d_ff,
-                               stack=(layers,))
+        p["ffn"] = cm.init_mlp(generator, cfg.d_model, cfg.d_ff, stack=st)
     return p
+
+
+def init_block_by_layer(generator, cfg: ArchConfig, stack, kind: str
+                        ) -> Params:
+    """``init_block`` over the stack ``stack``, drawn one layer at a time
+    into tensors allocated once: ``normal_init`` draws f32 and casts, so a
+    stacked draw would hold the whole stack's f32 copy (22.5 GB for
+    jamba's 7 Mamba layers of experts at full width), this one a layer's."""
+    stack = tuple(stack)
+    out = None
+    for idx in itertools.product(*map(range, stack)):
+        one = init_block(generator, cfg, (), kind)
+        if out is None:
+            out = cm.tree_map(lambda t: torch.empty(
+                stack + tuple(t.shape), dtype=t.dtype, device=t.device), one)
+        _write_at(out, one, idx)
+        del one
+    return out
+
+
+def _write_at(dst, src, idx) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _write_at(dst[k], v, idx)
+        else:
+            dst[k][idx].copy_(v)
 
 
 def layer(blocks, i: int) -> Params:
@@ -87,6 +131,12 @@ def layer(blocks, i: int) -> Params:
     if hasattr(blocks, "layer"):
         return blocks.layer(i)
     return cm.tree_map(lambda t: t[i], blocks)
+
+
+def mamba_layer(blocks, g: int, j: int) -> Params:
+    """The hybrid's Mamba block ``j`` of group ``g`` (``blocks``:
+    ``params["mamba_blocks"]``, stacked (G, P - 1, ...))."""
+    return cm.tree_map(lambda t: t[g, j], blocks)
 
 
 def apply_ffn(p, cfg: ArchConfig, x):
@@ -104,6 +154,43 @@ def attn_block_fwd(p, cfg: ArchConfig, x, positions, kv=None):
         kv["k"], kv["v"] = k, v
     o = cm.gqa_attention(q, k, v, causal=True)
     x = x + cm.attn_out(p["attn"], o)
+    h = cm.rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + apply_ffn(p["ffn"], cfg, h)
+
+
+def run_block(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat``, only the inputs are kept and the block
+    is recomputed in the backward pass (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``), which changes no value."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def mamba_block_fwd(p, cfg: ArchConfig, x, state=None):
+    """One hybrid Mamba block over a whole sequence: norm, Mamba, residual,
+    norm, FFN, residual. ``state`` (optional): a dict that receives the
+    Mamba's decode state after the last step, for the prefill cache."""
+    h = cm.rms_norm(x, p["norm1"], cfg.norm_eps)
+    if state is None:
+        x = x + mb.mamba_fwd(p["mamba"], cfg, h)
+    else:
+        y, st = mb.mamba_fwd(p["mamba"], cfg, h, return_state=True)
+        state.update(st)
+        x = x + y
+    h = cm.rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + apply_ffn(p["ffn"], cfg, h)
+
+
+def mamba_block_decode(p, cfg: ArchConfig, x, ssm_h, ssm_conv):
+    """x: (B, 1, D); ssm_h (B, di, N) and ssm_conv (B, K - 1, di): this
+    block's Mamba state, updated in place."""
+    h = cm.rms_norm(x, p["norm1"], cfg.norm_eps)
+    y, st = mb.mamba_step(p["mamba"], cfg, h, {"h": ssm_h, "conv": ssm_conv})
+    ssm_h.copy_(st["h"])
+    ssm_conv.copy_(st["conv"])
+    x = x + y
     h = cm.rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + apply_ffn(p["ffn"], cfg, h)
 
@@ -133,7 +220,8 @@ def init_lm(seed: int, cfg: ArchConfig, device="cuda") -> Params:
     that the 1.6 B parameters of stablelm-1.6b take seconds, not a host
     ``randn`` of minutes). The values differ from the reference's
     ``init_lm`` (threefry draws), and a seed gives other values on the CPU
-    than on a card."""
+    than on a card. The hybrid's stacks are drawn a layer at a time
+    (``init_block_by_layer``)."""
     _check_family(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -143,7 +231,12 @@ def init_lm(seed: int, cfg: ArchConfig, device="cuda") -> Params:
                                           device=dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = cm.normal_init(g, (D, V), 1.0 / math.sqrt(D))
-    p["blocks"] = init_block(g, cfg, cfg.n_layers)
+    if cfg.family == "hybrid":
+        G, P = _groups(cfg)
+        p["mamba_blocks"] = init_block_by_layer(g, cfg, (G, P - 1), "mamba")
+        p["attn_blocks"] = init_block_by_layer(g, cfg, (G,), "attn")
+    else:
+        p["blocks"] = init_block(g, cfg, cfg.n_layers)
     return p
 
 
@@ -190,13 +283,19 @@ def forward(params, cfg: ArchConfig, tokens, extra_embeds=None,
     x = embed_tokens(params, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     remat = remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
-        bp = layer(params["blocks"], i)
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                attn_block_fwd, bp, cfg, x, positions, use_reentrant=False)
-        else:
-            x = attn_block_fwd(bp, cfg, x, positions)
+    if cfg.family == "hybrid":
+        G, P = _groups(cfg)
+        for g in range(G):
+            for j in range(P - 1):
+                x = run_block(remat, mamba_block_fwd,
+                              mamba_layer(params["mamba_blocks"], g, j), cfg,
+                              x)
+            x = run_block(remat, attn_block_fwd,
+                          layer(params["attn_blocks"], g), cfg, x, positions)
+    else:
+        for i in range(cfg.n_layers):
+            x = run_block(remat, attn_block_fwd, layer(params["blocks"], i),
+                          cfg, x, positions)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_head(params, cfg, x)
 
@@ -206,10 +305,22 @@ def forward(params, cfg: ArchConfig, tokens, extra_embeds=None,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
     _check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"attn": {"k": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=dev),
-                     "v": torch.zeros(shape, dtype=KV_CACHE_DTYPE, device=dev)},
-            "cur": 0}
+    hybrid = cfg.family == "hybrid"
+    G, P = _groups(cfg) if hybrid else (cfg.n_layers, 1)
+    shape = (G, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"attn": {"k": torch.zeros(shape, dtype=KV_CACHE_DTYPE,
+                                       device=dev),
+                      "v": torch.zeros(shape, dtype=KV_CACHE_DTYPE,
+                                       device=dev)},
+             "cur": 0}
+    if hybrid:          # every attention layer's KV; every Mamba's state
+        di = cfg.ssm_d_inner
+        cache["ssm"] = {
+            "h": torch.zeros((G, P - 1, batch, di, cfg.ssm_d_state),
+                             dtype=torch.float32, device=dev),
+            "conv": torch.zeros((G, P - 1, batch, cfg.ssm_d_conv - 1, di),
+                                dtype=torch.bfloat16, device=dev)}
+    return cache
 
 
 @torch.no_grad()
@@ -224,13 +335,24 @@ def decode_step(params, cfg: ArchConfig, cache, token, head_fn=None):
     if cur >= cache["attn"]["k"].shape[2]:
         raise ValueError(f"KV cache full: position {cur} of "
                          f"{cache['attn']['k'].shape[2]}")
-    for i in range(cfg.n_layers):
-        x = attn_block_decode(layer(params["blocks"], i), cfg, x,
-                              cache["attn"]["k"][i], cache["attn"]["v"][i],
-                              cur)
+    kc, vc = cache["attn"]["k"], cache["attn"]["v"]
+    if cfg.family == "hybrid":
+        G, P = _groups(cfg)
+        ssm = cache["ssm"]
+        for g in range(G):
+            for j in range(P - 1):
+                x = mamba_block_decode(
+                    mamba_layer(params["mamba_blocks"], g, j), cfg, x,
+                    ssm["h"][g, j], ssm["conv"][g, j])
+            x = attn_block_decode(layer(params["attn_blocks"], g), cfg, x,
+                                  kc[g], vc[g], cur)
+    else:
+        for i in range(cfg.n_layers):
+            x = attn_block_decode(layer(params["blocks"], i), cfg, x, kc[i],
+                                  vc[i], cur)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = head_fn(x) if head_fn is not None else logits_head(params, cfg, x)
-    return logits, {"attn": cache["attn"], "cur": cur + 1}
+    return logits, {**cache, "cur": cur + 1}
 
 
 @torch.no_grad()
@@ -246,12 +368,28 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: Optional[int] = None,
     x = embed_tokens(params, cfg, tokens)
     cache = init_cache(cfg, B, max_len, x.device)
     positions = torch.arange(T, device=x.device)[None, :]
-    for i in range(cfg.n_layers):
+
+    def attn(bp, i, x):
         kv: Dict[str, torch.Tensor] = {}
-        x = attn_block_fwd(layer(params["blocks"], i), cfg, x, positions, kv)
+        x = attn_block_fwd(bp, cfg, x, positions, kv)
         for name in ("k", "v"):
             c = cache["attn"][name]
             c[i, :, :T] = _cache_store(kv[name], c.dtype)
+        return x
+
+    if cfg.family == "hybrid":
+        G, P = _groups(cfg)
+        for g in range(G):
+            for j in range(P - 1):
+                st: Dict[str, torch.Tensor] = {}
+                x = mamba_block_fwd(mamba_layer(params["mamba_blocks"], g, j),
+                                    cfg, x, st)
+                for name in ("h", "conv"):
+                    cache["ssm"][name][g, j] = st[name]
+            x = attn(layer(params["attn_blocks"], g), g, x)
+    else:
+        for i in range(cfg.n_layers):
+            x = attn(layer(params["blocks"], i), i, x)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = x[:, -1:]
     logits = head_fn(last) if head_fn is not None \

@@ -1,5 +1,6 @@
-"""Serve a dense LM with a quantized output head: greedy prefill and decode
-whose LM head runs through the ``quant_matmul`` kernel.
+"""Serve a decoder-only LM (dense, MoE, VLM or hybrid) with a quantized
+output head: greedy prefill and decode whose LM head runs through the
+``quant_matmul`` kernel.
 
 Port of the first half of the reference's ``examples/serve_quantized.py``.
 The head is packed once (``kernels.ops.pack_for_kernel``: per-column scales,

@@ -2,8 +2,10 @@
 version (scan: 1e-5; MxVs: rtol 1e-4 / atol 1e-3; the packed MxV bitwise
 equal to the f32 MxV on the dequantized bank), the wrappers' launch counts
 and layout checks, the SRU's and the xLSTM's kernel lanes against their
-plain lanes, and the training forward and retraining on the card against
-the CPU.
+plain lanes, the training forward and retraining on the card against
+the CPU, and the hybrid family's Mamba, decode and flash-style attention
+on the card against the CPU lane or the dense path, with ``quant_matmul``
+at its LM heads.
 
 Every test is marked ``gpu`` and skips where no CUDA device is present.
 The file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -549,3 +551,90 @@ def test_launch_train_resumes_on_the_card(dev, tmp_path, capsys):
     assert step == 6
     for a, b in zip(opt.tree_leaves(got), opt.tree_leaves(want)):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# ------------------------------------------------ the hybrid and its heads
+
+def _reduced_hybrid():
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    return cfg, tfm.init_lm(0, cfg, "cpu")
+
+
+def test_mamba_on_the_card_matches_cpu(dev):
+    """A reduced Mamba mixer (d_inner 128, N 8, chunks of 8) over 21 steps
+    (a padded last chunk), then two decode steps, on the card against the
+    CPU lane: outputs within atol 0.05 (the reference's Mamba bound), the
+    f32 state within 1e-5."""
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import transformer as tfm
+    cfg, params = _reduced_hybrid()
+    p = tfm.mamba_layer(params["mamba_blocks"], 1, 0)["mamba"]
+    x = _rand(4, (2, 23, cfg.d_model)).to(torch.bfloat16)
+    want, st = mb.mamba_fwd(p, cfg, x[:, :21], return_state=True)
+    got, gst = mb.mamba_fwd(_to(p, dev), cfg, x[:, :21].to(dev),
+                            return_state=True)
+    for t in (21, 22):
+        w, st = mb.mamba_step(p, cfg, x[:, t:t + 1], st)
+        g, gst = mb.mamba_step(_to(p, dev), cfg, x[:, t:t + 1].to(dev), gst)
+        want, got = torch.cat([want, w], 1), torch.cat([got, g], 1)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0,
+                               atol=0.05)
+    torch.testing.assert_close(gst["h"].cpu(), st["h"], rtol=1e-4, atol=1e-5)
+
+
+def test_hybrid_decode_on_the_card_matches_cpu(dev, monkeypatch):
+    """The reduced jamba (two groups of a Mamba and an attention block, 4
+    experts top-2) at ``MOE_CAPACITY_FACTOR`` 8.0 (no token dropped): an
+    8-token prefill and 3 decode steps on the card against the CPU lane,
+    logits within atol 0.15 (the CPU tests' logit bound)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import transformer as tfm
+    monkeypatch.setattr(cm, "MOE_CAPACITY_FACTOR", 8.0)
+    cfg, params = _reduced_hybrid()
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 11)))
+    want, cache = tfm.prefill(params, cfg, toks[:, :8], max_len=11)
+    got, gcache = tfm.prefill(_to(params, dev), cfg, toks[:, :8].to(dev),
+                              max_len=11)
+    for t in range(8, 11):
+        torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0,
+                                   atol=0.15)
+        want, cache = tfm.decode_step(params, cfg, cache, toks[:, t:t + 1])
+        got, gcache = tfm.decode_step(_to(params, dev), cfg, gcache,
+                                      toks[:, t:t + 1].to(dev))
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0,
+                               atol=0.15)
+    assert gcache["ssm"]["h"].device.type == "cuda"
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_branch_on_the_card_matches_dense(dev, causal):
+    """The flash-style branch (forced by ``dense_max`` 256; 600 queries and
+    keys: two q-chunks of 512 and one kv-chunk of 1,024, both padded)
+    against the dense path on the card, atol 0.02."""
+    from repro_torch.models import common as cm
+    q = _rand(6, (2, 600, 8, 64)).to(torch.bfloat16).to(dev)
+    k = _rand(7, (2, 600, 2, 64)).to(torch.bfloat16).to(dev)
+    v = _rand(8, (2, 600, 2, 64)).to(torch.bfloat16).to(dev)
+    flash = cm.gqa_attention(q, k, v, causal=causal, dense_max=256)
+    dense = cm.gqa_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(flash.float(), dense.float(), rtol=0,
+                               atol=0.02)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 8192, 65536), (4, 6144, 92672)])
+def test_quant_matmul_at_the_family_heads(dev, M, K, N):
+    """``quant_matmul`` int8 at jamba's and internvl2-26b's LM heads
+    against its plain version (rtol 1e-4 / atol 1e-3), one launch."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    w = torch.randn((K, N), generator=g, device=dev) / K ** 0.5
+    packed, scales = ops.pack_for_kernel(w, 8, float(w.abs().max()))
+    x = torch.randn((M, K), generator=g, device=dev)
+    before = ops.quant_matmul.launches
+    got = ops.quant_matmul(x, packed, scales, 8)
+    assert ops.quant_matmul.launches == before + 1
+    torch.testing.assert_close(got, ref.quant_matmul_ref(x, packed, scales,
+                                                         8),
+                               rtol=1e-4, atol=1e-3)

@@ -10,7 +10,6 @@ model. The reference's prefill and decode run jitted, as in
 ``test_torch_lm.py``; ``moe_ffn`` and ``forward`` op by op. MoE prefill and
 decode do not equal ``forward`` even in the reference (groups and
 capacities differ), so each function is held to its own counterpart."""
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -237,15 +236,6 @@ def test_remat_changes_no_gradient(moe):
     assert torch.equal(out[0][0], out[1][0])
     for a, b in zip(TO.tree_leaves(out[0][1]), TO.tree_leaves(out[1][1])):
         assert torch.equal(a, b)
-
-
-def test_hybrid_still_raises():
-    hybrid = TT.ArchConfig(**dataclasses.asdict(
-        ref_get_config("jamba-1.5-large-398b").reduced()))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TT.init_lm(0, hybrid, "cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TREG.get_model(hybrid, "cpu").init(0)
 
 
 # ------------------------------------------------------ the int8 KV cache
