@@ -22,6 +22,15 @@ Phases, each printing JSON lines:
    bank); at FC every bank-GEMM tile configuration, forced, bitwise equal
    to every other; at every scan shape ``sru_scan`` bitwise equal to lane
    0 of ``sru_scan_pop``;
+2b. contracts: the contract checker (``repro_torch.core.contracts``) on
+   the SRU and xLSTM harnesses through ``bank_mxv_pop``, ``bank_qmm_pop``
+   and ``sru_scan_pop`` at widths of 4-16: C1 (no weight requantized in a
+   banked forward), C1-packed (no f32 bank stack read in the packed lane),
+   C2 (no float64), C4 (one dispatch, no host sync and one device-to-host
+   copy a generation; each dispatch's launches what the layers give) and
+   C5 (changing one lane's allocation, and for the serving step its input
+   chunk, moves no other lane, in both bank formats); C3 is reported as
+   not applicable. Fails on any finding or a kernel not launched;
 3. search path: the inference-only MOHAQ search on the paper's model
    (``configs/sru_timit.py``, full width, synthetic speech), trained first
    on the card by ``train_small_sru`` (400 AdamW steps of 8 x 48 frames
@@ -103,7 +112,17 @@ Phases, each printing JSON lines:
    the beacon search, with one retrain at full width where the search
    retrains none. Printed: the training curve, the generation sizes and
    seconds, ``n_evals``, fronts, retrain seconds, each beacon's error
-   under the base and its own params, and peak memory;
+   under the base and its own params, and peak memory. Then
+   ``xlstm_resume``: the trained params cut to their first
+   ``XLSTM_RESUME_BLOCKS`` blocks at full width (printed), saved by
+   ``training.checkpoint.save``; the target rebuilt by
+   ``target_from_params``; the phase's beacon search run uninterrupted
+   into a ``SearchStore``; then two children (``--resume-child``, arch
+   "xlstm") that restore the checkpoint into a fresh template and check
+   ``target_fingerprint``, the first SIGKILLed after the first generation
+   whose checkpoint holds a retrain, the second resuming: the front, its
+   rows, evaluations, retrains and beacon digests must equal the
+   uninterrupted run's;
 9. moe_lm: no kernel runs here. The LM trainer, ``python -m
    repro_torch.launch.train``'s ``main``, on granite-moe-1b-a400m at full
    width and depth (``MOE_TRAIN``: 40 steps of 8 x 512 tokens checkpointed
@@ -144,6 +163,11 @@ Phases, each printing JSON lines:
    the counts are read it is timed at both head shapes
    (``QMM_FAMILY_SHAPES``: CUDA-graph device time, byte bound, plain
    version, f32 ``matmul`` on the dequantized head);
+10b. examples: ``examples/torch_quickstart.py``,
+   ``torch_mohaq_search_sru.py --fast`` and ``torch_serve_quantized.py``
+   as child processes on the card, started together; each must exit 0
+   and import neither JAX nor the reference package; their launches join
+   the counts;
 11. timing: each kernel, its plain version and the PyTorch library call
    (CUDA events, after warm-up) at the main paths' shapes and at the
    serving shapes; for the bank kernels the median and range of 5 repeats
@@ -161,10 +185,12 @@ Phases, each printing JSON lines:
    device times and ``host_ms`` the event-timed call (``ms_from`` says
    which).
 
-Each path (3, 4, 5, 6, 7, 8, 9, 10) runs with the launch counts set to 0
-just before it and read just after (phase 5: in the resumed child, around its
-search; phase 8: around each of its two searches);
-the ``kernels`` line's ``launches`` add up those reads.
+Each path (2b, 3, 4, 5, 6, 7, 8, 9, 10, 10b) runs with the launch counts
+set to 0 just before it and read just after (phase 5: in the resumed child,
+around its search; phase 8: around each of its two searches, the cut
+uninterrupted search and the resumed child's search; 10b: in each child);
+the ``kernels`` line's ``launches`` add up those reads. A
+``wall_seconds`` line gives each phase's seconds.
 The last line is ``{"ok": true, "device": {...}}``; a failed phase raises
 and the script exits non-zero. It exits non-zero, printing no result, where
 no CUDA device is present or the port's sources are missing.
@@ -245,6 +271,7 @@ SEARCH_KW = dict(generations=2, pop=10, initial=40, seed=0)
 # threshold (the paper's 6 for the SRU's 6 searchable layers, scaled to
 # the xLSTM's 25)
 XLSTM_ARCH = "xlstm-350m"
+XLSTM_BLOCKS = 24             # the config's depth, which the search runs
 XLSTM_TRAIN = dict(steps=240, batch=4096, seq=3, lr=1e-3,
                    schedule="constant", tf32=True)
 XLSTM_BASELINE_BAR = 90.0
@@ -255,6 +282,9 @@ XLSTM_DISTANCE = 25.0
 # bank_mxv_pop at the xLSTM's MxV shapes, (P, M, m, N) and bank rows: P = 64
 # lanes of 1,024 folded frames; the sLSTM's recurrent MxV runs P x H lanes
 # of the 16 folded sequences against the (K x H, dh, 4 dh) bank view
+# the xLSTM's crash-and-resume check runs at full width on the trained
+# model's first blocks (two children must stay near 150 s together)
+XLSTM_RESUME_BLOCKS = 8
 XLSTM_MXV_SHAPES = {"fc": ((64, 1024, 1024, 2048), 4),
                     "wx": ((64, 1024, 1024, 8192), 4),
                     "head": ((64, 1024, 1024, 50432), 4),
@@ -291,6 +321,10 @@ QMM_FAMILY_SHAPES = {"jamba": (1, 8192, 65536), "internvl2": (4, 6144, 92672)}
 TRAINED_DIR = "trained"       # the training checkpoint, under the work dir
 STORE_DIR = "search_store"    # the uninterrupted beacon run's SearchStore
 CHILD_TIMEOUT_S = 600
+# the examples run as children on the card, with their own arguments
+EXAMPLES = (("torch_quickstart.py", []),
+            ("torch_mohaq_search_sru.py", ["--fast"]),
+            ("torch_serve_quantized.py", []))
 
 
 @dataclass
@@ -975,23 +1009,25 @@ def beacon_sram(target) -> int:
     return int((mat * 3.5 + target.vector_weights * 16) / 8)
 
 
-def beacon_settings():
-    """The ``SETTINGS.json`` of the beacon search's store
+def beacon_settings(retrain_steps=BEACON_STEPS, distance_threshold=6.0):
+    """The ``SETTINGS.json`` of a beacon search's store
     (``SearchSession.run``'s run settings)."""
     return {"generations": SEARCH_KW["generations"],
             "pop": SEARCH_KW["pop"], "initial": SEARCH_KW["initial"],
             "objectives": ["error", "speedup"], "beacons": True,
-            "retrain_steps": BEACON_STEPS, "distance_threshold": 6.0}
+            "retrain_steps": retrain_steps,
+            "distance_threshold": distance_threshold}
 
 
 def run_summary(res) -> dict:
     """What a resumed beacon search must reproduce, in JSON form: the front
-    (``front_key``), evaluations, retrains and each beacon's digest."""
+    (``front_key``), its rows (allocation, error, test error, speedup),
+    evaluations, retrains and each beacon's digest."""
     from repro_torch.core import durable_io
     bs = res.beacon_search
     return json.loads(json.dumps({
-        "front_key": res.front_key(), "n_evals": res.n_evals,
-        "n_retrains": bs.n_retrains,
+        "front_key": res.front_key(), "rows": front_rows(res.table()),
+        "n_evals": res.n_evals, "n_retrains": bs.n_retrains,
         "beacon_digests": [durable_io.tree_digest(b.params)
                            for b in bs.beacons]}))
 
@@ -1008,10 +1044,12 @@ def configure_torch():
 
 
 def resume_child(spec: dict) -> int:
-    """One process of the resume phase (``--resume-child SPEC``): restore
+    """One process of a resume check (``--resume-child SPEC``): restore
     the trained params from the training checkpoint, build the target on
-    the card, and run the beacon search of ``beacon_search`` into
-    ``spec["store"]`` (resuming it when ``spec["resume"]``). With
+    the card, and run the beacon search into ``spec["store"]`` (resuming
+    it when ``spec["resume"]``). ``spec["arch"]``: "sru" (the paper's
+    model and ``beacon_search``'s search) or "xlstm" (xlstm-350m cut to
+    ``spec["blocks"]`` blocks and ``xlstm_search``'s beacon search). With
     ``spec["kill_after"]`` the process kills itself with SIGKILL right
     after ``SearchStore.save`` commits that generation. Prints one
     ``RESULT {...}`` line."""
@@ -1019,19 +1057,30 @@ def resume_child(spec: dict) -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device is present")
     configure_torch()
-    from repro_torch.configs.sru_timit import CONFIG
     from repro_torch.core import api
     from repro_torch.core import checkpointing as ckpt
-    from repro_torch.core import sru_experiment as X
     from repro_torch.kernels import ops
-    from repro_torch.models import sru
     from repro_torch.training import checkpoint as tc
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    template = sru.init_params(torch.Generator().manual_seed(1), CONFIG,
-                               device=dev)
-    params, _ = tc.restore(spec["trained"], template)
-    target = X.target_from_params(CONFIG, params, device=dev)
+    if spec.get("arch", "sru") == "xlstm":
+        from repro_torch.core import xlstm_target as XT
+        from repro_torch.models import registry
+        cfg = xlstm_cut_config(spec["blocks"])
+        template = registry.get_model(cfg, dev).init(1)
+        params, _ = tc.restore(spec["trained"], template)
+        target = XT.target_from_params(cfg, params, device=dev, **XLSTM_VAL)
+        run_kw = dict(retrain_steps=XLSTM_RETRAIN_STEPS,
+                      distance_threshold=XLSTM_DISTANCE)
+    else:
+        from repro_torch.configs.sru_timit import CONFIG
+        from repro_torch.core import sru_experiment as X
+        from repro_torch.models import sru
+        template = sru.init_params(torch.Generator().manual_seed(1), CONFIG,
+                                   device=dev)
+        params, _ = tc.restore(spec["trained"], template)
+        target = X.target_from_params(CONFIG, params, device=dev)
+        run_kw = dict(retrain_steps=BEACON_STEPS)
     fingerprint = ckpt.target_fingerprint(target)
     if fingerprint != spec["fingerprint"]:
         raise AssertionError(f"the restored target's fingerprint "
@@ -1069,9 +1118,9 @@ def resume_child(spec: dict) -> int:
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = sess.run(beacons=True, retrain_steps=BEACON_STEPS,
-                   checkpoint_dir=spec["store"], resume=spec["resume"],
-                   log=lines.append, **SEARCH_KW)
+    res = sess.run(beacons=True, checkpoint_dir=spec["store"],
+                   resume=spec["resume"], log=lines.append, **run_kw,
+                   **SEARCH_KW)
     torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1108,27 +1157,26 @@ def child_result(proc) -> dict:
     return json.loads(lines[-1][len("RESULT "):])
 
 
-def phase_resume(target, work, run: BeaconRun):
-    """Crash and resume of the beacon search on the card, in two child
-    processes that each restore the trained params from the training
-    checkpoint: the first runs ``run``'s search into a fresh store and
-    SIGKILLs itself right after generation K is committed (K: the first
-    generation whose checkpoint in ``run``'s store holds a retrain); the
-    second resumes that store. Fails unless the first died by SIGKILL with
-    a retrain on disk, the resumed run equals ``run`` in front, evaluations,
-    retrains and beacon digests, and it ran only the retrains the store did
-    not hold. Then ``front_from_store`` on ``run``'s store gives ``run``'s
-    front, which ``pack_deployment``/``load_deployment`` round-trip with
-    equal digests. Returns the children's launch counts."""
+def kill_and_resume(target, run: BeaconRun, spec: dict, settings: dict,
+                    phase: str) -> dict:
+    """Crash and resume of the checkpointed beacon search ``run`` in two
+    child processes (``resume_child`` with ``spec``: the training
+    checkpoint, the arch, the target's fingerprint): the first runs
+    ``run``'s search into a fresh store and SIGKILLs itself right after
+    generation K is committed (K: the first generation whose checkpoint in
+    ``run``'s store holds a retrain, one that leaves retrains to run after
+    the kill where there is one); the second resumes that store. Emits one
+    ``phase`` line and raises unless the first died by SIGKILL with a
+    retrain on disk, the resumed run equals ``run`` in front, rows,
+    evaluations, retrains and beacon digests, and it ran only the retrains
+    the store did not hold. Returns the resumed child's launch counts."""
     from repro_torch.core import checkpointing as ckpt
     from repro_torch.core import durable_io
     from repro_torch.core.hardware import get_platform
     from repro_torch.kernels import ops
-    from repro_torch.serving import convert, load_deployment
 
     key = ckpt.search_key(target, get_platform("bitfusion"),
                           SEARCH_KW["seed"], sram_bytes=run.sram)
-    settings = beacon_settings()
     store = ckpt.SearchStore(str(run.store))
     on_disk = {}
     for g in store.generations(key, settings):
@@ -1149,10 +1197,10 @@ def phase_resume(target, work, run: BeaconRun):
                              f"retrain: {on_disk}")
     kill_after = next((g for g in held if on_disk[g] < total), held[0])
 
-    killed_store = work / "killed_store"
-    spec = {"trained": str(work / TRAINED_DIR), "store": str(killed_store),
-            "sram": run.sram, "fingerprint": ckpt.target_fingerprint(target),
-            "resume": False, "kill_after": kill_after}
+    killed_store = Path(spec["store"])
+    spec = {**spec, "sram": run.sram, "resume": False,
+            "fingerprint": ckpt.target_fingerprint(target),
+            "kill_after": kill_after}
     killed, killed_s = spawn_child(spec)
     if killed.returncode != -signal.SIGKILL:
         raise AssertionError(f"the first child was to die by SIGKILL, rc "
@@ -1177,7 +1225,7 @@ def phase_resume(target, work, run: BeaconRun):
     want = run.summary
     same = {k: got[k] == want[k] for k in want}
     retrains_after = len(got["retrain_s"])
-    emit({"phase": "resume", "kill_after_generation": kill_after,
+    emit({"phase": phase, "kill_after_generation": kill_after,
           "retrains_per_generation_uninterrupted": on_disk,
           "retrains_restored_from_disk": mid.n_retrains,
           "retrains_run_after_kill": retrains_after,
@@ -1188,6 +1236,7 @@ def phase_resume(target, work, run: BeaconRun):
                             "search_s": got["search_s"],
                             "log": got["resumed"],
                             "checkpoint_stats": got["checkpoint_stats"]},
+          "children_wall_s": killed_s + resumed_s,
           "uninterrupted_search_s": run.seconds,
           "equal_to_uninterrupted": same, "n_evals": got["n_evals"],
           "n_retrains": got["n_retrains"], "launches": counts})
@@ -1200,6 +1249,23 @@ def phase_resume(target, work, run: BeaconRun):
         raise AssertionError(f"the resumed child ran {retrains_after} "
                              f"retrains; the store held {mid.n_retrains} "
                              f"of {want['n_retrains']}")
+    return counts
+
+
+def phase_resume(target, work, run: BeaconRun):
+    """Crash and resume of the SRU beacon search on the card
+    (``kill_and_resume``: two child processes that each restore the
+    trained params from the training checkpoint). Then
+    ``front_from_store`` on ``run``'s store gives ``run``'s front, which
+    ``pack_deployment``/``load_deployment`` round-trip with equal digests.
+    Returns the resumed child's launch counts."""
+    from repro_torch.core import durable_io
+    from repro_torch.serving import convert, load_deployment
+
+    counts = kill_and_resume(
+        target, run, {"arch": "sru", "trained": str(work / TRAINED_DIR),
+                      "store": str(work / "killed_store")},
+        beacon_settings(), "resume")
 
     # the uninterrupted store's front, packed and loaded back
     allocs, rows = convert.front_from_store(str(run.store), target)
@@ -2020,9 +2086,101 @@ def phase_xlstm_search(dev):
               for k in ("error_base_params", "error_beacon_params")]
     if not np.isfinite(values).all():
         raise AssertionError(f"non-finite xLSTM beacon errors {values}")
+    cut = xlstm_cut_params(target.params, XLSTM_RESUME_BLOCKS)
     del target, made, bs, beacon, sess
     torch.cuda.empty_cache()
-    return {k: counts[k] + beacon_counts[k] for k in counts}
+    resume_counts = xlstm_resume(dev, cut)
+    return {k: counts[k] + beacon_counts[k] + resume_counts[k]
+            for k in counts}
+
+
+def xlstm_cut_config(blocks: int):
+    """xlstm-350m at full width cut to its first ``blocks`` blocks."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(XLSTM_ARCH)
+    return dataclasses.replace(cfg, name=f"{cfg.name}-first{blocks}",
+                               n_layers=blocks)
+
+
+def xlstm_cut_params(params, blocks: int):
+    """Copies of the trained embedding, head, final norm and first
+    ``blocks`` blocks (``blocks // 2`` stacked (mLSTM, sLSTM) pairs)."""
+    from repro_torch.models import common as cm
+    out = {k: v.clone() for k, v in params.items() if k != "pairs"}
+    out["pairs"] = cm.tree_map(lambda a: a[:blocks // 2].clone(),
+                               params["pairs"])
+    return out
+
+
+def xlstm_resume(dev, params) -> dict:
+    """Crash and resume of the xLSTM's beacon search at full width, on the
+    trained model cut to ``XLSTM_RESUME_BLOCKS`` blocks (``params``): the
+    params saved by ``training.checkpoint.save``; the target rebuilt by
+    ``xlstm_target.target_from_params``; the phase's beacon search
+    (bitfusion, ``XLSTM_RETRAIN_STEPS``, ``XLSTM_DISTANCE``, an SRAM that
+    holds any allocation) run uninterrupted into a ``SearchStore``; then
+    ``kill_and_resume`` in two children that restore the checkpoint into a
+    fresh template. Returns the launch counts of the uninterrupted run and
+    the resumed child."""
+    import torch
+    from repro_torch.core import api
+    from repro_torch.core import xlstm_target as XT
+    from repro_torch.kernels import ops
+    from repro_torch.training import checkpoint as tc
+
+    cfg = xlstm_cut_config(XLSTM_RESUME_BLOCKS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_xlstm_") as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        tc.save(str(work / TRAINED_DIR), XLSTM_TRAIN["steps"], params,
+                keep=1)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        target = XT.target_from_params(cfg, params, device=dev, **XLSTM_VAL)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        weights = sum(target.layer_weights.values())
+        sram = (weights + target.vector_weights) * 2
+        sess = api.SearchSession(target, "bitfusion", ("error", "speedup"),
+                                 sram_override=sram, share_memo=False)
+        store = work / STORE_DIR
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sess.run(beacons=True, retrain_steps=XLSTM_RETRAIN_STEPS,
+                       distance_threshold=XLSTM_DISTANCE,
+                       checkpoint_dir=str(store), **SEARCH_KW)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        run = BeaconRun(store=store, sram=sram, seconds=search_s,
+                        summary=run_summary(res),
+                        front=[r["alloc"] for r in res.table()])
+        emit({"phase": "xlstm_resume", "cut": {
+            "config": cfg.name, "blocks": cfg.n_layers, "of_blocks":
+                XLSTM_BLOCKS, "d_model": cfg.d_model,
+            "layers": len(target.layer_names),
+            "searchable_weights": weights},
+            "training_checkpoint_save_s": save_s, "target_setup_s": setup_s,
+            "baseline_val_error": target.baseline_val_error,
+            "uninterrupted_search_s": search_s,
+            "n_retrains": run.summary["n_retrains"],
+            "n_evals": run.summary["n_evals"], "front": run.summary["rows"],
+            "checkpoint_stats": res.checkpoint_stats,
+            "store_bytes": dir_bytes(store), "launches": counts})
+        if counts["bank_mxv_pop"] <= 0:
+            raise AssertionError(f"bank_mxv_pop was not launched by the cut "
+                                 f"xLSTM's beacon search ({counts})")
+        child = kill_and_resume(
+            target, run, {"arch": "xlstm", "blocks": XLSTM_RESUME_BLOCKS,
+                          "trained": str(work / TRAINED_DIR),
+                          "store": str(work / "killed_store")},
+            beacon_settings(XLSTM_RETRAIN_STEPS, XLSTM_DISTANCE),
+            "xlstm_resume")
+        del target, sess, res
+    torch.cuda.empty_cache()
+    return {k: counts[k] + child[k] for k in counts}
 
 
 def moe_train(dev, work: Path) -> dict:
@@ -3091,6 +3249,111 @@ def profile_training(dev, target, steps: int = 3):
     return out
 
 
+def phase_contracts(dev):
+    """The contract checker (``repro_torch.core.contracts``) on both
+    registered harnesses on the card: C1, C1-packed, C2, C4 and C5 through
+    ``bank_mxv_pop``, ``bank_qmm_pop`` and ``sru_scan_pop`` at the
+    harnesses' widths (4-16), C3 reported as not applicable. Emits each
+    target's verdicts, launches and seconds; raises on any finding or when
+    one of the three kernels did not launch. Returns the launch counts."""
+    import torch
+    from repro_torch.core import contracts
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    findings, reports = contracts.run_contracts(["sru", "xlstm"],
+                                                device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for rep in reports:
+        emit({"phase": "contracts", **rep})
+    emit({"phase": "contracts", "launches": counts, "seconds": seconds})
+    if findings:
+        raise AssertionError("contract findings on the card:\n" + "\n".join(
+            f.format() for f in findings))
+    for name in ("bank_mxv_pop", "bank_qmm_pop", "sru_scan_pop"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the contract "
+                                 f"checks ({counts})")
+    return counts
+
+
+# what the example children report after ``main`` returns
+_EXAMPLE_RUNNER = """
+import json, runpy, sys
+path = sys.argv[1]
+sys.argv = sys.argv[1:]
+runpy.run_path(path, run_name="__main__")
+from repro_torch.kernels import ops
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("EXAMPLE " + json.dumps({"imported_reference": bad,
+                               "launches": ops.launch_counts()}), flush=True)
+"""
+
+
+def _read_back(f) -> str:
+    f.seek(0)
+    return f.read()
+
+
+def phase_examples(dev):
+    """The port's user examples (``EXAMPLES``) as child processes on the
+    card, each with its own arguments, all started together (they are
+    host-bound): fails on a non-zero exit or when a child imported JAX or
+    the reference package. Emits each child's seconds, launches and last
+    output lines, and the phase's wall seconds. Returns the children's
+    launch counts."""
+    from repro_torch.kernels import ops
+    counts = {k: 0 for k in ops.launch_counts()}
+    # host-bound children share the host's cores: two threads each
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "2"}
+    t0 = time.perf_counter()
+    children = []
+    try:
+        for name, args in EXAMPLES:
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+            proc = subprocess.Popen(
+                [sys.executable, "-c", _EXAMPLE_RUNNER,
+                 str(REPO / "examples" / name), *args], stdout=out,
+                stderr=err, text=True, cwd=str(REPO), env=env)
+            children.append((name, args, proc, out, err))
+        results = []
+        for name, args, proc, out, err in children:
+            rc = proc.wait(timeout=max(1.0, CHILD_TIMEOUT_S
+                                       - (time.perf_counter() - t0)))
+            results.append((name, args, rc, time.perf_counter() - t0,
+                            _read_back(out), _read_back(err)))
+    finally:
+        for _, _, proc, out, err in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+    for name, args, rc, done_s, stdout, stderr in results:
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("EXAMPLE ")]
+        got = json.loads(lines[-1][len("EXAMPLE "):]) if lines else {}
+        emit({"phase": "examples", "example": name, "args": args, "rc": rc,
+              "done_after_s": done_s, "launches": got.get("launches"),
+              "imported_reference": got.get("imported_reference"),
+              "tail": [ln for ln in stdout.splitlines()
+                       if not ln.startswith("EXAMPLE ")][-6:]})
+        if rc != 0 or not lines:
+            raise AssertionError(f"example {name} failed (rc {rc}):\n"
+                                 f"{stderr[-3000:]}")
+        if got["imported_reference"]:
+            raise AssertionError(f"example {name} imported "
+                                 f"{got['imported_reference'][:5]}")
+        counts = {k: counts[k] + got["launches"].get(k, 0) for k in counts}
+    emit({"phase": "examples", "wall_s": time.perf_counter() - t0,
+          "launches": counts})
+    return counts
+
+
 def phase_timing(dev, max_err, counts, smi_line, target):
     import torch
     from repro_torch.kernels import ops, ref
@@ -3180,22 +3443,39 @@ def main() -> int:
     configure_torch()
     dev = torch.device("cuda")
 
-    smi_line = phase_setup()
-    max_err = phase_kernels(dev)
+    wall = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        wall[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    smi_line = timed("setup", phase_setup)
+    max_err = timed("kernels", phase_kernels, dev)
+    contract_counts = timed("contracts", phase_contracts, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
-        counts, target = phase_main_path(dev, work)
-        beacon_counts, run = phase_beacon_search(dev, target, work)
-        paths = [beacon_counts, phase_resume(target, work, run)]
-    paths += [phase_lm_serve(dev), phase_front_serve(dev, target),
-              phase_xlstm_search(dev), phase_moe_lm(dev)]
-    family_counts, family_heads = phase_families(dev)
-    paths.append(family_counts)
+        counts, target = timed("main_path", phase_main_path, dev, work)
+        beacon_counts, run = timed("beacon_search", phase_beacon_search,
+                                   dev, target, work)
+        paths = [contract_counts, beacon_counts,
+                 timed("resume", phase_resume, target, work, run)]
+    paths += [timed(name, fn, *args) for name, fn, args in (
+        ("lm_serve", phase_lm_serve, (dev,)),
+        ("front_serve", phase_front_serve, (dev, target)),
+        ("xlstm_search", phase_xlstm_search, (dev,)),
+        ("moe_lm", phase_moe_lm, (dev,)))]
+    family_counts, family_heads = timed("families", phase_families, dev)
+    paths += [family_counts, timed("examples", phase_examples, dev)]
     max_err["quant_matmul"] = max([max_err["quant_matmul"]] + [
         r["max_abs_err"] for r in family_heads])
     for path_counts in paths:
         counts = {k: counts[k] + path_counts[k] for k in counts}
-    kernels = phase_timing(dev, max_err, counts, smi_line, target)
+    kernels = timed("timing", phase_timing, dev, max_err, counts, smi_line,
+                    target)
+    emit({"phase": "wall_seconds", **wall, "sum": round(sum(wall.values()),
+                                                        1)})
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
            or m == "repro" or m.startswith("repro.")]
     if bad:

@@ -294,3 +294,52 @@ def build_untrained_sru(cfg: SRUModelConfig, *, seed: int = 0,
     params = sru.init_params(torch.Generator().manual_seed(seed), cfg,
                              device=device)
     return target_from_params(cfg, params, device=device)
+
+
+def sru_contract_harness(device="cuda"):
+    """Tiny-but-real SRU instance for the contract checker (see
+    ``repro_torch.core.target_registry``). Every dimension avoids the
+    checker's activation marker dim (T=3): hidden=6 (bi-state 12), proj=4,
+    input 5, outputs 7, two layers; so a rounding op whose shapes carry a
+    3 can only be an activation fake-quant, and one that does not is a
+    weight (re)quantization the banked lane must not contain. The weights
+    are the port's own seeded draw (``init_params`` at seed 0). On a card
+    the forwards run through ``bank_mxv_pop``/``bank_qmm_pop`` and
+    ``sru_scan_pop`` at these widths, far below every tile."""
+    from repro_torch.core.target_registry import ContractHarness, MARKER_DIM
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg = SRUModelConfig(name="sru_contract", input_dim=5, hidden=6,
+                         proj=4, n_sru_layers=2, n_outputs=7)
+    params = sru.init_params(torch.Generator().manual_seed(0), cfg,
+                             device=dev)
+    B, T = 2, MARKER_DIM
+    feats = torch.from_numpy(np.linspace(
+        -1.0, 1.0, B * T * cfg.input_dim, dtype=np.float32
+    ).reshape(B, T, cfg.input_dim)).to(dev)
+    labels = torch.zeros((B, T), dtype=torch.int64, device=dev)
+    names = list(cfg.layer_names())
+    act_ranges = {n: 1.0 for n in names}
+    wclips = {(n, b): 0.5 for n in names for b in (2, 4, 8)}
+    wranges = {n: 1.0 for n in names}
+    trained = TrainedSRU(cfg, params, None, [(feats, labels)] * 4,
+                         [(feats, labels)], act_ranges, wclips, wranges,
+                         0.0, 0.0)
+
+    def forward_pop(params, feats, qp_stack, banks=None):
+        return sru.forward_population(params, cfg, feats, qp_stack,
+                                      banks=banks)
+
+    def forward_decode(params, feats_lane, qp_stack, banks=None):
+        # the serving hot path: feats_lane (P, T, m), one request chunk per
+        # population lane; C5 checks that no lane reaches another
+        return sru.forward_decode_step(params, cfg, feats_lane, qp_stack,
+                                       banks=banks)
+
+    return ContractHarness(
+        name="sru", target=trained, feats=feats, labels=labels,
+        layer_names=tuple(names), marker_dim=T,
+        anchor_path="src/repro_torch/models/sru.py", forward_pop=forward_pop,
+        make_evaluator=lambda: trained.batched_evaluator(use_banks=True),
+        forward_decode=forward_decode)

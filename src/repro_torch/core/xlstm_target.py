@@ -534,3 +534,44 @@ def train_small_xlstm(steps: int = 120, *, cfg: Optional[ArchConfig] = None,
                   f"loss {float(loss):.3f}")
     return target_from_params(cfg, params, device=device,
                               val_batch=val_batch, val_seq=val_seq)
+
+
+def xlstm_contract_harness(device="cuda"):
+    """Tiny-but-real xLSTM instance for the contract checker (see
+    ``repro_torch.core.target_registry``). The reduced xlstm-350m cut to
+    two blocks, d_model 16, 2 heads and a vocabulary of 32 keeps every
+    model dimension off the checker's activation marker dim (T=3), so
+    marker-carrying rounding ops are activation fake-quants and any other
+    is a weight requantization the banked lane must not contain. The
+    weights are the port's own seeded draw (``init`` at seed 0). The
+    banks are f32 only and there is no serving decode step, as in the
+    reference: C5 checks ``forward_pop``."""
+    from repro_torch.core.target_registry import ContractHarness, MARKER_DIM
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg = dataclasses.replace(get_config("xlstm-350m").reduced(),
+                              name="xlstm_contract", n_layers=2,
+                              d_model=16, n_heads=2, vocab_size=32)
+    params = registry.get_model(cfg, dev).init(0)
+    B, T = 2, MARKER_DIM
+    toks = torch.from_numpy((np.arange(B * T).reshape(B, T)
+                             % cfg.vocab_size).astype(np.int64)).to(dev)
+    labels = toks
+    names = quant_layer_names(cfg)
+    act_ranges = {n: 1.0 for n in names}
+    wclips = {(n, b): 0.5 for n in names for b in (2, 4, 8)}
+    wranges = {n: 1.0 for n in names}
+    target = XLSTMTarget(cfg, params, [(toks, labels)] * 4,
+                         [(toks, labels)], act_ranges, wclips, wranges)
+
+    def forward_pop(params, feats, qp_stack, banks=None):
+        return forward_population(params, cfg, feats, qp_stack, banks=banks)
+
+    return ContractHarness(
+        name="xlstm", target=target, feats=toks, labels=labels,
+        layer_names=names, marker_dim=T,
+        anchor_path="src/repro_torch/core/xlstm_target.py",
+        forward_pop=forward_pop,
+        make_evaluator=lambda: target.batched_evaluator(use_banks=True),
+        forward_decode=None)

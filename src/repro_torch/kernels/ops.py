@@ -12,10 +12,15 @@ on where its tensors lie:
 
 Each wrapper counts its kernel launches in a plain integer attribute,
 ``<wrapper>.launches``, incremented only where the kernel is launched;
-``reset_launch_counts``/``launch_counts`` read and clear them all.
+``reset_launch_counts``/``launch_counts`` read and clear them all. Where it
+launches, a wrapper also hands its kernel's name, input tensors and output
+tensors to every callable registered with ``observe_launches`` (the
+contract checker, ``core/contracts.py``, sees the kernels' operands so);
+with none registered this costs one list test.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -29,6 +34,25 @@ from repro_torch.kernels import ref
 
 _CONTAINERS = (("q2", torch.int8), ("q4", torch.int8), ("q8", torch.int8),
                ("q16", torch.int16))
+
+
+_OBSERVERS: list = []
+
+
+@contextlib.contextmanager
+def observe_launches(fn):
+    """Call ``fn(name, inputs, outputs)`` at every kernel launch inside the
+    block (tuples of tensors; no launch happens on the CPU)."""
+    _OBSERVERS.append(fn)
+    try:
+        yield fn
+    finally:
+        _OBSERVERS.remove(fn)
+
+
+def _notify(name: str, inputs, outputs) -> None:
+    for fn in _OBSERVERS:
+        fn(name, tuple(inputs), tuple(outputs))
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -122,6 +146,8 @@ def sru_scan_pop(uw, uf, ur, v_f, v_r, b_f, b_r):
         return ref.sru_scan_pop_ref(uw, uf, ur, v_f, v_r, b_f, b_r)
     h, r, c, launched = _launch_scan(uw, uf, ur, v_f, v_r, b_f, b_r)
     sru_scan_pop.launches += int(launched)
+    if launched and _OBSERVERS:
+        _notify("sru_scan_pop", (uw, uf, ur, v_f, v_r, b_f, b_r), (h, r, c))
     return h, r, c
 
 
@@ -133,6 +159,8 @@ def sru_scan(uw, uf, ur, v_f, v_r, b_f, b_r):
     h, r, c, launched = _launch_scan(uw[None], uf[None], ur[None],
                                      v_f, v_r, b_f, b_r)
     sru_scan.launches += int(launched)
+    if launched and _OBSERVERS:
+        _notify("sru_scan", (uw, uf, ur, v_f, v_r, b_f, b_r), (h, r, c))
     return h[0], r[0], c[0]
 
 
@@ -281,6 +309,8 @@ def bank_mxv_pop(x, bank, idx, config: Optional[int] = None):
                                      P, M, m, N, K, cfg, width, _stream(dev))
     _raise_on(err, name)
     bank_mxv_pop.launches += 1
+    if _OBSERVERS:
+        _notify("bank_mxv_pop", (x, bank, idx), (out,))
     return out
 
 
@@ -332,6 +362,9 @@ def bank_qmm_pop(x, packed, idx, config: Optional[int] = None):
             _ptr(out), P, M, m, N, cfg, width8, width16, _stream(dev))
     _raise_on(err, name)
     bank_qmm_pop.launches += 1
+    if _OBSERVERS:
+        _notify("bank_qmm_pop", (x, idx) + tuple(
+            packed[k] for k in ("q2", "q4", "q8", "q16", "scale")), (out,))
     return out
 
 
@@ -411,6 +444,8 @@ def quant_matmul(x, packed_w, scales, bits: int):
                                      _ptr(out), M, K, N, bits, _stream(dev))
     _raise_on(err, name)
     quant_matmul.launches += 1
+    if _OBSERVERS:
+        _notify("quant_matmul", (x, packed_w, scales), (out,))
     return out
 
 

@@ -14,7 +14,7 @@ Dtypes follow the reference: ``in_proj`` and ``out_proj`` are bf16
 products rounded once to bf16; ``x_proj`` keeps its f32 sum; ``dt_proj``
 is an f32 product (run it with TF32 off on the card); the conv, its SiLU
 and the gate arithmetic round every bf16 operation, as XLA does on the CPU
-for the reference, jitted and op by op alike (``_silu``).
+for the reference, jitted and op by op alike (``common.silu``).
 """
 from __future__ import annotations
 
@@ -67,14 +67,6 @@ def init_mamba(generator, cfg, stack=()) -> Dict[str, torch.Tensor]:
     }
 
 
-def _silu(x):
-    """``jax.nn.silu`` as the reference lowers it: x * (1 / (1 +
-    exp(-x))), every operation rounded to x's dtype (for bf16 this is what
-    XLA computes on the CPU, jitted or not; ``torch.sigmoid`` rounds the
-    exact sigmoid once, which differs in about a third of bf16 inputs)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
-
-
 def _causal_conv(p, cfg, x, init_state=None):
     """Depthwise causal conv over time, then SiLU. x: (B, T, di) bf16;
     ``init_state``: the previous K-1 inputs (B, K-1, di), zeros if None.
@@ -90,7 +82,7 @@ def _causal_conv(p, cfg, x, init_state=None):
     out = xp[:, 0:T] * p["conv_w"][0]
     for i in range(1, K):
         out = out + xp[:, i:i + T] * p["conv_w"][i]
-    return _silu(out), xp[:, xp.shape[1] - (K - 1):]
+    return cm.silu(out), xp[:, xp.shape[1] - (K - 1):]
 
 
 def _gates(p, cfg, x):
@@ -156,7 +148,7 @@ def mamba_fwd(p, cfg, h, return_state: bool = False):
         ys.append(y + p["D_skip"] * xk)
         hstate = hs[:, -1]
     y = torch.cat(ys, dim=1)[:, :T]
-    y = (y * _silu(z.to(torch.float32))).to(h.dtype)
+    y = (y * cm.silu(z.to(torch.float32))).to(h.dtype)
     out = torch.matmul(y, p["out_proj"])
     if return_state:
         return out, {"h": hstate, "conv": conv_tail}
@@ -178,6 +170,6 @@ def mamba_step(p, cfg, h, state) -> Tuple[torch.Tensor, Dict]:
     hs = a * state["h"] + b
     y = torch.einsum("bdn,bn->bd", hs, Cm[:, 0])
     y = y + p["D_skip"] * x0
-    y = (y * _silu(z[:, 0].to(torch.float32))).to(h.dtype)
+    y = (y * cm.silu(z[:, 0].to(torch.float32))).to(h.dtype)
     out = torch.matmul(y[:, None], p["out_proj"])
     return out, {"h": hs, "conv": new_conv.to(state["conv"].dtype)}

@@ -164,7 +164,7 @@ def mlstm_fwd(p, cfg: ArchConfig, x, chunk: int = 128,
             n = n * keep[..., None] + n_up
         m = m_next
     y = torch.cat(ys, dim=1)[:, :T].reshape(lead + (T, H * dh))
-    z = F.silu(mm("wz", x).to(torch.float32))
+    z = cm.silu(mm("wz", x).to(torch.float32))
     y = (y * z).to(x.dtype)
     out = mm("wo", y)
     if return_state:
@@ -198,7 +198,7 @@ def mlstm_step(p, cfg: ArchConfig, x, state):
     denom = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", qs, n_new)),
                           torch.exp(-m_new))[..., None]
     y = (y / denom).reshape(B, 1, H * dh)
-    z = F.silu(mm("wz", x).to(torch.float32))
+    z = cm.silu(mm("wz", x).to(torch.float32))
     y = (y * z).to(x.dtype)
     return mm("wo", y), {"S": S_new, "n": n_new, "m": m_new}
 

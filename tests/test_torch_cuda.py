@@ -638,3 +638,24 @@ def test_quant_matmul_at_the_family_heads(dev, M, K, N):
     torch.testing.assert_close(got, ref.quant_matmul_ref(x, packed, scales,
                                                          8),
                                rtol=1e-4, atol=1e-3)
+
+
+def test_contract_checker_on_the_card(dev):
+    """``repro_torch.core.contracts`` on both harnesses through the
+    kernels: every contract holds, C3 is not applicable, one dispatch and
+    one device-to-host copy a generation, and each lane's dispatch
+    launches what the harness's layers give."""
+    from repro_torch.core import contracts
+    findings, reports = contracts.run_contracts(["sru", "xlstm"],
+                                                device=dev)
+    assert findings == [], [f.format() for f in findings]
+    by = {r["target"]: r for r in reports}
+    for rep in by.values():
+        assert rep["dispatches_per_generation"] == 1
+        assert rep["readbacks_per_generation"] == 1
+        assert rep["contracts"]["C3"] == contracts.C3_NOT_APPLICABLE
+    sru = by["sru"]["launches"]
+    assert sru["forward_pop packed"] == {"bank_qmm_pop": 6,
+                                         "sru_scan_pop": 4}
+    assert sru["evaluator"] == {"bank_mxv_pop": 4, "sru_scan_pop": 4}
+    assert by["xlstm"]["launches"]["forward_pop f32"] == {"bank_mxv_pop": 11}

@@ -1,0 +1,99 @@
+"""The port's user examples (``examples/torch_*.py``) run in-process on the
+CPU at their smallest arguments: a handful of training steps, one
+generation. ``torch_quickstart``'s Table 4 counts and S7 objectives equal
+the reference's numbers (its training is cut to 5 steps here by wrapping
+``train_small_sru``)."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+from repro.configs import get_config as ref_get_config
+from repro.core.hardware import SILAGO as REF_SILAGO
+from repro.core.mohaq import MOHAQProblem as RefProblem
+from repro.models.sru import LAYER_NAMES as REF_LAYER_NAMES
+
+EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """These runs are many small ops: one intra-op thread keeps them off
+    the other test workers' cores (with six workers on eight cores a
+    multithreaded small op waits on its own threads)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(name, EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_quickstart_matches_reference_numbers(monkeypatch):
+    mod = _load("torch_quickstart")
+    train = mod.X.train_small_sru
+    monkeypatch.setattr(mod.X, "train_small_sru",
+                        lambda steps, **kw: train(steps=5, **kw))
+    out = mod.main(["--device", "cpu"])
+    paper = ref_get_config("sru_timit")
+    assert out["table4"] == paper.layer_weight_counts()
+    assert sum(out["table4"].values()) == 5549500
+    macs = paper.layer_weight_counts()
+    prob = RefProblem(list(REF_LAYER_NAMES), macs, macs,
+                      paper.vector_weight_count(), REF_SILAGO,
+                      lambda a: 0.0, 16.2, fixed_ops=88000 + 10704)
+    want = prob.hardware_objectives({n: (4, 4) for n in REF_LAYER_NAMES})
+    assert out["s7"] == want
+    assert round(want["speedup"], 1) == 3.9 and \
+        round(want["compression"], 1) == 8.0
+    assert sorted(out["ptq"]) == [2, 4, 8]
+
+
+def test_train_sru_speech_restores_exactly(tmp_path):
+    out = _load("torch_train_sru_speech").main(
+        ["--steps", "5", "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    assert out["restored_exact"] and out["step"] == 5
+    assert {k: round(cr, 1) for k, (_, cr) in out["sweep"].items()} == {
+        (8, 16): 4.0, (4, 16): 8.0, (4, 8): 8.0, (2, 16): 16.0,
+        (2, 8): 16.0}
+
+
+def test_mohaq_search_sru_resumes(tmp_path):
+    args = ["--train-steps", "5", "--generations", "1", "--device", "cpu",
+            "--checkpoint-dir", str(tmp_path)]
+    mod = _load("torch_mohaq_search_sru")
+    out = mod.main(args)
+    assert out["exp1"].n_evals > 0 and out["exp3_beacon"].beacon_search
+    resumed = mod.main(args + ["--resume"])
+    for k in ("exp1", "exp2", "exp3"):
+        assert resumed[k].front_key() == out[k].front_key()
+
+
+
+def test_mohaq_search_xlstm():
+    out = _load("torch_mohaq_search_xlstm").main(
+        ["--train-steps", "3", "--generations", "1", "--device", "cpu"])
+    assert out["bitfusion"].n_evals > 0 and out["mem_only"].n_evals > 0
+    assert len(out["target"].layer_names) == 5
+
+
+def test_serve_quantized():
+    out = _load("torch_serve_quantized").main(["--device", "cpu"])
+    assert out["tokens_match"]
+    assert out["served"]["n_completed"] == 6
+    assert out["quant_matmul_launches"] == 0     # no kernel on the CPU
+
+
+def test_examples_need_a_card_by_default():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _load("torch_quickstart").main([])

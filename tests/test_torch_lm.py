@@ -3,7 +3,8 @@ against the reference's, on ``get_config("stablelm-1.6b").reduced()`` with
 the reference's own weights (``repro.models.transformer.init_lm(PRNGKey(0))``
 carried across bitwise by ``params_from_numpy``).
 
-Tolerances: the primitives within atol 0.02 on bf16 inputs; prefill and
+Tolerances: the primitives within atol 0.02 on bf16 inputs (the gated MLP
+bitwise); prefill and
 decode logits within atol 0.15, the reference's own bound for its
 prefill/decode/forward agreement (``tests/test_models_smoke.py``). Greedy
 decode diverges for good after one flipped token, so tokens are compared
@@ -155,7 +156,8 @@ def test_mlp(model):
     tp = TT.layer(tparams["blocks"], 0)["ffn"]
     got = TC.mlp(tp, xt)
     assert got.dtype == torch.bfloat16
-    np.testing.assert_allclose(_np(got), _np(RC.mlp(rp, xj)), atol=0.02)
+    # bitwise since the SiLU rounds each of its operations as XLA does
+    assert np.array_equal(_np(got), _np(RC.mlp(rp, xj)))
 
 
 # ---------------------------------------------------------------- the model

@@ -4,7 +4,8 @@ experts, top-2, one shared expert) with the reference's own weights
 (``init_lm(PRNGKey(0))`` carried across bitwise by ``params_from_numpy``).
 
 Tolerances: ``_dispatch_mask`` bitwise (the same gates in both packages);
-``moe_ffn`` within atol 0.02, as ``test_torch_lm.py``'s primitives;
+``moe_ffn`` bitwise on the fixture's inputs (the gather dispatch within
+atol 0.02, as ``test_torch_lm.py``'s primitives);
 forward, prefill and decode logits within atol 0.15, its bound for the
 model. The reference's prefill and decode run jitted, as in
 ``test_torch_lm.py``; ``moe_ffn`` and ``forward`` op by op. MoE prefill and
@@ -97,7 +98,9 @@ def test_moe_ffn_matches_reference(moe, group_size):
     want = RC.moe_ffn(rp, xj, top_k=rcfg.top_k, group_size=group_size)
     got = TC.moe_ffn(tp, xt, top_k=tcfg.top_k, group_size=group_size)
     assert got.dtype == torch.bfloat16 and got.shape == xt.shape
-    np.testing.assert_allclose(_np(got), _np(want), atol=0.02)
+    # bitwise on these inputs since the SiLU rounds each of its operations
+    # as XLA does (before, the shared expert's bf16 SiLU was 0.0156 off)
+    assert np.array_equal(_np(got), _np(want))
 
 
 def test_moe_ffn_gradient_flows_to_every_leaf(moe):

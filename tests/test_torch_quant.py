@@ -235,3 +235,11 @@ def test_card_scripts_import_no_reference():
     root = PORT_ROOT.parent.parent
     assert _reference_imports([root / "chip_smoke.py",
                                root / "xlstm_train_probe.py"]) == []
+
+
+def test_port_examples_import_no_reference():
+    """The port's user examples, beside the reference's in ``examples/``
+    (outside ``PORT_ROOT``): ``examples/torch_*.py``."""
+    files = sorted((PORT_ROOT.parent.parent / "examples").glob("torch_*.py"))
+    assert len(files) == 5
+    assert _reference_imports(files) == []
