@@ -163,6 +163,14 @@ Phases, each printing JSON lines:
    the counts are read it is timed at both head shapes
    (``QMM_FAMILY_SHAPES``: CUDA-graph device time, byte bound, plain
    version, f32 ``matmul`` on the dequantized head);
+10a. roofline: the roofline counter (``roofline/counter.py``) on each
+   contract harness's dispatches on the card and on the CPU (the counts
+   must be equal, field for field); ``launch.dryrun.run_cell`` at full
+   size on meta tensors for one decode_32k cell of each family
+   (``DRYRUN_CELLS``); xlstm-350m's ``decode_32k`` (``CARD_CELL``, batch
+   128) run on the card in bf16 and with ``--serve-wbits 8``: measured
+   ms, peak memory within ``PEAK_TOL`` of the reckoned peak, floor over
+   measured at most ``SHARE_MAX``;
 10b. examples: ``examples/torch_quickstart.py``,
    ``torch_mohaq_search_sru.py --fast`` and ``torch_serve_quantized.py``
    as child processes on the card, started together; each must exit 0
@@ -184,6 +192,16 @@ Phases, each printing JSON lines:
    ``kernels`` line the scans' and ``quant_matmul``'s ``ms`` are graph
    device times and ``host_ms`` the event-timed call (``ms_from`` says
    which).
+
+Every step a phase times (the SRU generation, its train and retrain
+steps, the server's dispatch, ``lm_serve``'s prefill and decode step, the
+xLSTM generation, the granite-moe train step, each decode step of
+``moe_lm`` and ``families``, the audio train step, the VLM loss and
+prefills) is counted once more on the card with the roofline counter
+(``bound_line``): a line with its FLOPs, bytes, ``floor_ms`` and ``share
+= floor_ms / measured_ms``; the script fails above ``SHARE_MAX``, and a
+``roofline`` line before ``wall_seconds`` lists them all. The counts'
+own kernel launches are taken back out of the wrappers' counts.
 
 Each path (2b, 3, 4, 5, 6, 7, 8, 9, 10, 10b) runs with the launch counts
 set to 0 just before it and read just after (phase 5: in the resumed child,
@@ -215,15 +233,6 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 SRC = REPO / "src"
-
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s
-# (TF32 is off by the parity rule, so the CUDA-core rate is the ceiling)
-HBM_BYTES_S = 3.35e12
-FP32_FLOP_S = 67e12
-# flops per (lane, sequence, step, channel) of the SRU recurrence: two gate
-# pre-activations (2 mul + 4 add), two sigmoids (neg, exp, add, div each),
-# the state update (2 mul, 2 add) and h (1 mul)
-SCAN_FLOPS = 21
 
 SERVE_LANES, SERVE_CHUNK, SERVE_TAIL = 8, 16, 7
 SMALL_ROWS = 32                             # timing: more calls per run below
@@ -317,6 +326,17 @@ HYBRID = dict(arch="jamba-1.5-large-398b", layers=8, experts=4,
               prompt=10240, gen=16, mamba_cpu_tokens=256, mamba_steps=512,
               flash_check_T=4096, check_prompt=256, check_steps=17)
 # quant_matmul's (M, K, N) at the int8 heads of the families phase
+# the roofline phase: one dry-run cell of each family at full size on meta
+# tensors, and the cell run for real on the card
+DRYRUN_CELLS = (("stablelm-1.6b", "decode_32k"),
+                ("granite-moe-1b-a400m", "decode_32k"),
+                ("xlstm-350m", "decode_32k"),
+                ("jamba-1.5-large-398b", "decode_32k"),
+                ("seamless-m4t-medium", "decode_32k"),
+                ("internvl2-26b", "decode_32k"))
+CARD_CELL = ("xlstm-350m", "decode_32k")
+CARD_PEAK_MAX = 70e9
+PEAK_TOL = 0.25
 QMM_FAMILY_SHAPES = {"jamba": (1, 8192, 65536), "internvl2": (4, 6144, 92672)}
 TRAINED_DIR = "trained"       # the training checkpoint, under the work dir
 STORE_DIR = "search_store"    # the uninterrupted beacon run's SearchStore
@@ -390,9 +410,57 @@ def graph_ms(fn, launches: int = 20) -> dict:
     return {k: v / launches for k, v in stats.items()}
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / FP32_FLOP_S * 1e3
+# every path's bound line (``bound_line``), for the roofline phase's summary
+BOUNDS = []
+SHARE_MAX = 1.05
+
+
+def bound_line(phase, name, fn, measured_ms, **extra):
+    """Count ``fn()`` once more on the card with the port's roofline counter
+    (``roofline/counter.py``; its kernel launches are taken back out of the
+    wrappers' counts) and emit the step's counts beside the time the phase
+    measured: ``flops``, ``hbm_bytes``, ``min_hbm_bytes``, ``floor_ms`` (no
+    implementation is faster: ``report.floor_seconds``) and ``share =
+    floor_ms / measured_ms``. Raises where the share exceeds
+    ``SHARE_MAX``: a floor above the measured time is a counting fault."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import counter, report
+    saved = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = counter.count(fn)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    for fn_ in ops.WRAPPERS:
+        fn_.launches = saved[fn_.__name__]
+    floor_ms = report.floor_seconds(c) * 1e3
+    row = {"phase": phase, "bound": name, "measured_ms": measured_ms,
+           "floor_ms": floor_ms, "share": floor_ms / measured_ms,
+           "flops": c.flops, "flops_by_dtype": c.flops_by_dtype,
+           "elementwise_flops": c.elementwise_flops,
+           "hbm_bytes": c.hbm_bytes, "min_hbm_bytes": c.min_hbm_bytes,
+           "compute_ms": report.compute_seconds(c) * 1e3,
+           "memory_ms": c.hbm_bytes / report.H100_HBM_BYTES_S * 1e3,
+           "launches": c.launches, "reckoned_peak_bytes":
+           c.reckoned_peak_bytes, "count_s": count_s, **extra}
+    emit(row)
+    BOUNDS.append(row)
+    if not row["share"] <= SHARE_MAX:
+        raise AssertionError(f"{phase} {name}: floor {floor_ms:.4f} ms over "
+                             f"the measured {measured_ms:.4f} ms")
+    return row
+
+
+def bound_ms(cost):
+    """The least time the card takes for a kernel call of ``cost``
+    (``kernels.ops.KernelCost``, the formula its wrapper reports to the
+    roofline counter): its bytes at the HBM rate against its f32
+    operations at the CUDA-core rate (``roofline/report.py``'s H100 peaks;
+    TF32 is off by the parity rule). Returns (ms, what bounds it)."""
+    from repro_torch.roofline.report import H100_FP32_FLOP_S, H100_HBM_BYTES_S
+    t_bytes = cost.hbm_bytes / H100_HBM_BYTES_S * 1e3
+    t_ops = (cost.flops + cost.elementwise_flops) / H100_FP32_FLOP_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -455,23 +523,16 @@ def qmm_inputs(shape, bits, seed, dev):
 
 
 def qmm_cost(shape, packed):
-    M, K, N = shape
-    nbytes = 4 * M * K + packed.numel() + 4 * N + 4 * M * N
-    return nbytes, 2 * M * K * N
+    from repro_torch.kernels import ops
+    return ops.quant_matmul_cost(*shape, packed.numel())
 
 
-def scan_cost(shape):
-    P, B, T, n = shape
-    elems = P * B * T * n
-    return 4 * (5 * elems + P * B * n + 4 * n), SCAN_FLOPS * elems
-
-
-def mxv_cost(shape, idx, container_bytes_per_weight=4.0):
-    P, M, m, N = shape
-    rows = len(set(idx.tolist()))
-    nbytes = 4 * P * M * m + rows * m * N * container_bytes_per_weight \
-        + 4 * P * M * N
-    return nbytes, 2 * P * M * m * N
+def packed_cost(shape, packed):
+    """``bank_qmm_pop``'s formula on (P, M, m, N) and a packed bank."""
+    from repro_torch.kernels import ops
+    return ops.bank_qmm_cost(*shape, [
+        packed[k].numel() * packed[k].element_size()
+        for k in ("q2", "q4", "q8", "q16")], packed["scale"].numel() * 4)
 
 
 def errs(got, want):
@@ -785,6 +846,9 @@ def phase_main_path(dev, work):
     emit({"phase": "main_path", "generation0_lanes": len(allocs0),
           "generation0_eval_s": lanes_s, **cmp,
           "max_memory_allocated": peak})
+    bound_line("main_path", "sru_generation0",
+               lambda: target.val_error_batch(allocs0),
+               lanes_s["kernel"] * 1e3, lanes=len(allocs0))
     return counts, target
 
 
@@ -1414,6 +1478,12 @@ def phase_lm_serve(dev):
         nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) / LM_GEN * 1e3
+    bound_line("lm_serve", "prefill", lambda: tfm.prefill(
+        params, cfg, tokens, max_len=LM_PROMPT + LM_GEN, head_fn=head),
+        prefill_s * 1e3)
+    bound_line("lm_serve", "decode_step", lambda: tfm.decode_step(
+        params, cfg, {**cache, "cur": cache["cur"] - 1}, nxt, head_fn=head),
+        decode_ms)
     dense = lm.decode_loop(params, cfg, tokens, LM_GEN)
     head4 = lm.quant_head(params, cfg, 4, sampled_clip(
         tfm.logits_head_weight(params, cfg), 4))
@@ -1617,7 +1687,7 @@ def phase_front_serve(dev, target):
         runs, step = [], eng.step
 
         def recorded_step(feats, qp):
-            runs.append({"acts": []})
+            runs.append({"acts": [], "operands": (feats, qp)})
             runs[-1]["logits"] = step(feats, qp)
             return runs[-1]["logits"]
 
@@ -1710,6 +1780,19 @@ def phase_front_serve(dev, target):
         if counts[name] <= 0:
             raise AssertionError(f"{name} was not launched by the server "
                                  f"({counts})")
+    # one dispatch of the server (the first step's operands): its device
+    # and host time, median of 5 synchronised calls, and its bound
+    feats, qp = kern_runs[0]["operands"]
+    ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.step(feats, qp)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    bound_line("front_serve", "dispatch", lambda: engine.step(feats, qp),
+               float(np.median(ms[1:])), lanes=int(qp.shape[0]),
+               frames=list(feats.shape[:2]))
     return counts
 
 
@@ -2027,6 +2110,9 @@ def phase_xlstm_search(dev):
     if counts["bank_mxv_pop"] <= 0:
         raise AssertionError(f"bank_mxv_pop was not launched by the xLSTM "
                              f"search ({counts})")
+    bound_line("xlstm_search", "xlstm_generation0",
+               lambda: target.val_error_batch(calls[0][0]),
+               calls[0][1] * 1e3, lanes=len(calls[0][0]))
     if not np.isfinite([r["error"] for r in rows]
                        + [r["test_error"] for r in rows]).all():
         raise AssertionError(f"non-finite xLSTM front {rows}")
@@ -2262,6 +2348,7 @@ def moe_train(dev, work: Path) -> dict:
     finally:
         ck.save, ck.restore = save, restore
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    moe_train_bound(dev, out["first"]["step_ms_median"])
     head, tail = float(np.mean(stream[:10])), float(np.mean(stream[-10:]))
     summary = {"model": MOE_TRAIN_ARCH, **MOE_TRAIN, "tokens_per_step":
                tokens, "checkpoint_io": io_rows,
@@ -2285,6 +2372,32 @@ def moe_train(dev, work: Path) -> dict:
     if [r["kind"] for r in io_rows] != ["save", "restore", "save"]:
         raise AssertionError(f"moe_lm checkpoints: {io_rows}")
     return summary
+
+
+def moe_train_bound(dev, step_ms: float) -> None:
+    """The bound of ``launch.train``'s step on granite-moe-1b-a400m: the same
+    step (``make_train_step``, lr and schedule as ``MOE_TRAIN``) on a fresh
+    state and a batch of ``MOE_TRAIN``'s size, counted once."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models.registry import get_model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    cfg = get_config(MOE_TRAIN_ARCH)
+    model = get_model(cfg, dev)
+    state = ts.init_train_state(model, 0)
+    step = ts.make_train_step(model, opt.AdamWConfig(
+        lr=MOE_TRAIN["lr"], schedule="constant", warmup_steps=2,
+        total_steps=MOE_TRAIN["steps"]))
+    batch = next(synthetic.lm_batches(cfg.vocab_size, MOE_TRAIN["batch"],
+                                      MOE_TRAIN["seq"], device=dev))
+    bound_line("moe_lm", "granite_train_step", lambda: step(state, batch),
+               step_ms)
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def moe_cpu_checks(params, cfg, dev) -> dict:
@@ -2410,7 +2523,7 @@ def moe_serve(dev) -> dict:
         return sum(t.numel() * t.element_size()
                    for t in flatten_tree(tree).values())
 
-    def serve(p):
+    def serve(p, label):
         torch.cuda.synchronize()
         t = time.perf_counter()
         logits, cache = prefill(p, {"tokens": prompt})
@@ -2430,6 +2543,9 @@ def moe_serve(dev) -> dict:
         row.update(decode_ms_per_token=float(np.median(step_ms)),
                    decode_ms_range=[min(step_ms), max(step_ms)],
                    cache_positions=cache["cur"])
+        bound_line("moe_lm", f"qwen2_moe_decode_{label}", lambda: decode(
+            p, {**cache, "cur": cache["cur"] - 1}, {"token": tok}),
+            row["decode_ms_per_token"])
         return row, torch.cat(toks, dim=1)
 
     out = {"model": cfg.name, "params": cfg.n_params(),
@@ -2437,7 +2553,7 @@ def moe_serve(dev) -> dict:
            "decode_steps": G, "init_s": init_s,
            "memory_allocated_before": held}
     widths = {}
-    row, dense = serve(params)
+    row, dense = serve(params, "bf16")
     widths["bf16"] = {**row, "weight_bytes": nbytes(params)}
     out["checks"] = moe_cpu_checks(params, cfg, dev)
     spec = Q.tree_spec(params)
@@ -2454,7 +2570,7 @@ def moe_serve(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for bits, qtree in qtrees.items():
         lazy = Q.DequantizedByLayer(qtree, spec, bits)
-        row, toks = serve(lazy)
+        row, toks = serve(lazy, f"int{bits}")
         widths[f"int{bits}"].update(
             row, token_agreement_with_bf16=float(
                 (toks == dense).float().mean()),
@@ -2516,6 +2632,10 @@ def xlstm_decode(dev) -> dict:
             step_ms.append((time.perf_counter() - t) * 1e3)
             errs_.append(float((logits[:, 0].float() - full[:, i])
                                .abs().max()))
+        if layers == full_cfg.n_layers:
+            bound_line("moe_lm", "xlstm_decode_step", lambda: model.decode(
+                params, state, {"token": tokens[:, -1:]}),
+                float(np.median(step_ms)))
         rows[layers] = {"layers": layers, "prefill_s": prefill_s,
                         "decode_ms_per_token": float(np.median(step_ms)),
                         "max_abs_err_vs_forward": max(errs_),
@@ -2557,6 +2677,137 @@ def phase_moe_lm(dev) -> dict:
               for k, v in serve["widths"].items()},
           "xlstm_decode_ms_per_token": decode["decode_ms_per_token"]})
     return counts
+
+
+# ------------------------------------------------------------- roofline
+
+def harness_counts(device) -> dict:
+    """The roofline counts of each contract harness's dispatches
+    (``core/target_registry.py``, widths 4-16) through the kernel lane
+    (``use_kernel=True``: on the CPU the wrappers run their plain
+    versions), by name: the SRU's population forward with f32 and packed
+    banks and its serving decode step, the xLSTM's population forward."""
+    from repro_torch.core import contracts, target_registry, xlstm_target
+    from repro_torch.models import sru
+    from repro_torch.roofline import counter
+    out = {}
+    for name, fwd in (("sru", sru.forward_population),
+                      ("xlstm", xlstm_target.forward_population)):
+        h = target_registry.get_contract_harness(name, device=device)
+        t = h.target
+        allocs = contracts._contract_allocs(h.layer_names, tuple(t.menu))
+        qp = contracts._qp_stack(t, allocs, h.layer_names, h.feats.device)
+        banks = {"f32": t.make_banks(t.params)}
+        if hasattr(t, "make_packed_banks"):
+            banks["packed"] = t.make_packed_banks(t.params)
+        lanes = h.feats[:1].expand((len(allocs),) + tuple(
+            h.feats.shape[1:])).contiguous()
+        for fmt, b in banks.items():
+            out[f"{name} forward_pop {fmt}"] = counter.count(
+                lambda: fwd(t.params, t.cfg, h.feats, qp, banks=b,
+                            use_kernel=True)).as_dict()
+            if h.forward_decode is not None:
+                out[f"{name} forward_decode {fmt}"] = counter.count(
+                    lambda: sru.forward_decode_step(
+                        t.params, t.cfg, lanes, qp, banks=b,
+                        use_kernel=True)).as_dict()
+    return out
+
+
+def phase_roofline(dev):
+    """The roofline counter and the dry run on the card (the paths' own
+    bounds are printed by their phases, ``bound_line``):
+
+    - the counts of each contract harness's dispatches on the card equal
+      those of the same dispatch on the CPU, field for field (a wrapper
+      that counted on one branch only would part them);
+    - ``launch.dryrun.run_cell`` at full size on meta tensors for one cell
+      of each family (``DRYRUN_CELLS``): counts, floor, fits, reckoned
+      peak, seconds;
+    - ``CARD_CELL`` (or, where it does not fit, the first cell of
+      ``ARCH_IDS`` x ``SHAPES`` whose reckoned peak is under
+      ``CARD_PEAK_MAX`` bytes) run for real on the card, in bf16 and with
+      ``--serve-wbits 8``: the measured ms (median of 5 after a warm-up),
+      the measured peak beside the reckoned one (within ``PEAK_TOL``) and
+      ``floor / measured`` (at most ``SHARE_MAX``).
+
+    Kernel launches here are taken back out of the wrappers' counts."""
+    import torch
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    saved = ops.launch_counts()
+    t0 = time.perf_counter()
+    card, cpu = harness_counts(dev), harness_counts("cpu")
+    differ = {k: [f for f in card[k] if card[k][f] != cpu[k][f]]
+              for k in card}
+    emit({"phase": "roofline", "card_vs_cpu": {
+        k: {"equal": not differ[k], "fields_differ": differ[k],
+            "flops": card[k]["flops"], "hbm_bytes": card[k]["hbm_bytes"],
+            "min_hbm_bytes": card[k]["min_hbm_bytes"],
+            "launches": card[k]["launches"]} for k in card},
+        "seconds": time.perf_counter() - t0})
+    if any(differ.values()) or card.keys() != cpu.keys():
+        raise AssertionError(f"roofline counts on the card differ from the "
+                             f"CPU's: {differ}")
+    cells = {}
+    for arch, shape in DRYRUN_CELLS:
+        res = dryrun.run_cell(arch, shape, verbose=False)
+        r = res["roofline"]
+        cells[arch, shape] = res
+        emit({"phase": "roofline", "dryrun": f"{arch} {shape}",
+              "status": res["status"], "flops": r["flops"],
+              "hbm_bytes": r["hbm_bytes"], "min_hbm_bytes": r["min_hbm_bytes"],
+              "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+              "floor_s": res["floor_s"], "bottleneck": r["bottleneck"],
+              "fits": res["fits"],
+              "reckoned_peak_bytes": res["reckoned_peak_bytes"],
+              "lower_s": res["lower_s"], "analyze_s": res["analyze_s"]})
+        if res["status"] != "ok":
+            raise AssertionError(f"dry run of {arch} {shape}: {res}")
+    cell = CARD_CELL
+    if cells[cell]["reckoned_peak_bytes"] >= CARD_PEAK_MAX:
+        cell = next(c for c in ((a, s.name) for a in ARCH_IDS for s in SHAPES)
+                    if dryrun.run_cell(*c, verbose=False).get(
+                        "reckoned_peak_bytes", CARD_PEAK_MAX) < CARD_PEAK_MAX)
+    for wbits in (0, 8):
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = dryrun.run_cell(*cell, verbose=False, serve_wbits=wbits,
+                              run_card=True)
+        c = res["card"]
+        peak, reckoned = c["max_memory_allocated"], c["reckoned_peak_bytes"]
+        row = {"phase": "roofline", "on_card": f"{cell[0]} {cell[1]}",
+               "serve_wbits": wbits, "measured_ms": c["ms"],
+               "ms_range": [c["ms_min"], c["ms_max"]],
+               "floor_ms": res["floor_s"] * 1e3,
+               "share": c["floor_over_measured"],
+               "max_memory_allocated": peak, "reckoned_peak_bytes": reckoned,
+               "peak_vs_reckoned": peak / reckoned,
+               "argument_bytes": c["argument_bytes"],
+               "reckoned_argument_bytes":
+                   res["memory_analysis"]["argument_bytes"],
+               "flops": res["roofline"]["flops"],
+               "hbm_bytes": res["roofline"]["hbm_bytes"],
+               "min_hbm_bytes": res["roofline"]["min_hbm_bytes"]}
+        emit(row)
+        BOUNDS.append({"phase": "roofline", "bound": row["on_card"]
+                       + (f" wbits {wbits}" if wbits else ""),
+                       "measured_ms": row["measured_ms"],
+                       "floor_ms": row["floor_ms"], "share": row["share"]})
+        if not abs(peak / reckoned - 1) <= PEAK_TOL:
+            raise AssertionError(f"roofline: measured peak {peak} parts from "
+                                 f"the reckoned {reckoned} by more than "
+                                 f"{PEAK_TOL:.0%}")
+        if not row["share"] <= SHARE_MAX:
+            raise AssertionError(f"roofline: floor over measured "
+                                 f"{row['share']} > {SHARE_MAX}")
+    for fn in ops.WRAPPERS:
+        fn.launches = saved[fn.__name__]
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------- families
@@ -2607,11 +2858,15 @@ class RecordingHead:
             "max_abs_err": worst, "tol": "rtol 1e-4, atol 1e-3"}
 
 
-def greedy(prefill, decode, gen):
+def greedy(prefill, decode, gen, bound=None, count_prefill=True,
+           counted=None):
     """``prefill()`` -> (logits, cache), then ``gen`` greedy steps of
     ``decode(cache, token)`` -> (logits, cache). Returns (tokens (B, gen +
     1), every step's last-position f32 logits (B, gen + 1, V), prefill s,
-    median decode ms a step)."""
+    median decode ms a step). With ``bound`` = (phase, name), the last
+    decode step (the cache set back one position) and, with
+    ``count_prefill``, the prefill are counted once more (``bound_line``),
+    through ``counted`` = (prefill, decode) where given."""
     import numpy as np
     import torch
     torch.cuda.synchronize()
@@ -2632,18 +2887,32 @@ def greedy(prefill, decode, gen):
     out = torch.stack(outs, 1)
     if not torch.isfinite(out).all():
         raise AssertionError("families: non-finite logits in decode")
+    if bound is not None:
+        phase, name = bound
+        c_prefill, c_decode = counted or (prefill, decode)
+        if count_prefill:
+            bound_line(phase, f"{name}_prefill", c_prefill, prefill_s * 1e3)
+        bound_line(phase, f"{name}_decode_step", lambda: c_decode(
+            {**cache, "cur": cache["cur"] - 1}, toks[-2]),
+            float(np.median(step_ms)))
     return torch.cat(toks, 1), out, prefill_s, float(np.median(step_ms))
 
 
-def lm_greedy(params, cfg, prompt, gen, head_fn=None):
+def lm_greedy(params, cfg, prompt, gen, head_fn=None, **bound):
     """``greedy`` through ``transformer.prefill`` / ``decode_step`` with the
-    output head ``head_fn`` (dense when None)."""
+    output head ``head_fn`` (dense when None); ``bound``: as ``greedy``'s
+    (a ``RecordingHead`` is counted through its head, so that the count
+    adds no run to the record)."""
     from repro_torch.models import transformer as tfm
-    return greedy(
-        lambda: tfm.prefill(params, cfg, prompt,
-                            max_len=prompt.shape[1] + gen, head_fn=head_fn),
-        lambda cache, tok: tfm.decode_step(params, cfg, cache, tok,
-                                           head_fn=head_fn), gen)
+
+    def steps(fn):
+        return (lambda: tfm.prefill(params, cfg, prompt,
+                                    max_len=prompt.shape[1] + gen,
+                                    head_fn=fn),
+                lambda cache, tok: tfm.decode_step(params, cfg, cache, tok,
+                                                   head_fn=fn))
+    return greedy(*steps(head_fn), gen, counted=steps(
+        getattr(head_fn, "head", head_fn)), **bound)
 
 
 def decode_vs_forward(logits, full, atol) -> dict:
@@ -2694,6 +2963,8 @@ def audio_family(dev) -> dict:
         losses.append(float(metrics["loss"]))
         step_ms.append((time.perf_counter() - t) * 1e3)
     train_peak = torch.cuda.max_memory_allocated()
+    bound_line("families", "audio_train_step", lambda: step(state, batch),
+               float(np.median(step_ms[1:])))
     head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     train = {"steps": AUDIO["steps"], "batch": B, "seq": S, "lr": AUDIO["lr"],
              "loss": losses, "first_5_mean": head, "last_5_mean": tail,
@@ -2714,7 +2985,8 @@ def audio_family(dev) -> dict:
                          device=dev).to(torch.bfloat16)
     toks, logits, prefill_s, ms = greedy(
         lambda: model.prefill(params, {"frames": frames, "max_len": G + 1}),
-        lambda cache, tok: model.decode(params, cache, {"token": tok}), G)
+        lambda cache, tok: model.decode(params, cache, {"token": tok}), G,
+        bound=("families", "audio"))
     with torch.no_grad():
         bos = torch.zeros((SB, 1), dtype=toks.dtype, device=dev)
         full = encdec.forward(params, cfg, frames,
@@ -2766,6 +3038,9 @@ def vlm_family(dev) -> dict:
         loss = float(model.loss(params, batch))
         torch.cuda.synchronize()
         loss_s = time.perf_counter() - t
+    with torch.no_grad():
+        bound_line("families", "vlm_loss", lambda: model.loss(params, batch),
+                   loss_s * 1e3)
     ln_v = math.log(cfg.vocab_size)
     out = {"model": cfg.name, "params": cfg.n_params(),
            "weight_bytes": tree_bytes(params), "init_s": init_s,
@@ -2778,9 +3053,11 @@ def vlm_family(dev) -> dict:
     prompt = torch.randint(0, cfg.vocab_size, (VLM["batch"], VLM["prompt"]),
                            generator=g, device=dev)
     head = RecordingHead(lm.int8_head(params, cfg))
-    dense, _, d_prefill, d_ms = lm_greedy(params, cfg, prompt, VLM["gen"])
+    dense, _, d_prefill, d_ms = lm_greedy(params, cfg, prompt, VLM["gen"],
+                                          bound=("families", "vlm_dense"))
     quant, _, q_prefill, q_ms = lm_greedy(params, cfg, prompt, VLM["gen"],
-                                          head_fn=head)
+                                          head_fn=head,
+                                          bound=("families", "vlm_int8"))
     out["serve"] = {
         "batch": VLM["batch"], "prompt": VLM["prompt"],
         "decode_steps": VLM["gen"], "int8_head_bytes": head.head.nbytes,
@@ -2931,9 +3208,13 @@ def hybrid_family(dev) -> dict:
     prompt = torch.randint(0, cfg.vocab_size, (1, P), generator=g,
                            device=dev)
     head = RecordingHead(lm.int8_head(params, cfg))
-    dense, _, d_prefill, d_ms = lm_greedy(params, cfg, prompt, HYBRID["gen"])
-    quant, _, q_prefill, q_ms = lm_greedy(params, cfg, prompt,
-                                          HYBRID["gen"], head_fn=head)
+    # the 10,240-token prefill (6.4 s) is not counted again: decode only
+    dense, _, d_prefill, d_ms = lm_greedy(
+        params, cfg, prompt, HYBRID["gen"],
+        bound=("families", "hybrid_dense"), count_prefill=False)
+    quant, _, q_prefill, q_ms = lm_greedy(
+        params, cfg, prompt, HYBRID["gen"], head_fn=head,
+        bound=("families", "hybrid_int8"), count_prefill=False)
     out["serve"] = {
         "batch": 1, "prompt": P, "decode_steps": HYBRID["gen"],
         "dense": {"prefill_s": d_prefill, "decode_ms_per_token": d_ms},
@@ -2989,7 +3270,7 @@ def time_new_heads(dev) -> list:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
         w_deq = (ref.unpack_weights(packed, 8, shape[1]).to(torch.float32)
                  * scales[None, :])
-        b, by = bound_ms(*qmm_cost(shape, packed))
+        b, by = bound_ms(qmm_cost(shape, packed))
 
         def call():
             ops.quant_matmul(x, packed, scales, 8)
@@ -3073,7 +3354,7 @@ def time_xlstm_mxvs(dev):
         x = torch.randn((P, M, m), generator=g, device=dev)
         idx = torch.arange(P, dtype=torch.int32, device=dev) % K
         iters = 2 if N > 10000 else 5
-        b, by = bound_ms(*mxv_cost((P, M, m, N), idx))
+        b, by = bound_ms(ops.bank_mxv_cost(P, M, m, N, K))
         row = {"phase": "timing", "xlstm_mxv": name, "shape": [P, M, m, N],
                "bank_rows": K, "config": ops.bank_config(P, M, N),
                "bound_ms": b, "bound_by": by,
@@ -3115,11 +3396,9 @@ def time_banks(dev):
         x, bank, packed, idx = bank_inputs(shp, 4, dev)
         gathered = bank.index_select(0, idx.long())
         iters = 10 if shp[1] > SMALL_ROWS else 50
-        qb = sum(packed[k].numel() * packed[k].element_size()
-                 for k in ("q2", "q4", "q8", "q16")) / (shp[2] * shp[3] * 4)
-        bounds = {"bank_mxv_pop": bound_ms(*mxv_cost(shp, idx)),
-                  "bank_qmm_pop": bound_ms(*mxv_cost(
-                      shp, idx, container_bytes_per_weight=qb))}
+        bounds = {"bank_mxv_pop": bound_ms(ops.bank_mxv_cost(
+                      *shp, bank.shape[0])),
+                  "bank_qmm_pop": bound_ms(packed_cost(shp, packed))}
         row = {"phase": "timing", "layer": name, "shape": shp,
                "config": {k: ops.bank_config(shp[0], shp[1], shp[3],
                                              kernel=k)
@@ -3169,7 +3448,7 @@ def time_scans(dev):
         streams, vecs = scan_inputs(shape, 3, dev)
         args = streams if name == "sru_scan_pop" else [s[0] for s in streams]
         fn, plain = getattr(ops, name), getattr(ref, name + "_ref")
-        b, by = bound_ms(*scan_cost(shape))
+        b, by = bound_ms(ops.scan_cost(*shape))
         graph = graph_ms(lambda: fn(*args, *vecs))
         host = cuda_ms_stats(lambda: fn(*args, *vecs), 20)
         row = dict(name=name, shape=shape if name == "sru_scan_pop"
@@ -3244,6 +3523,8 @@ def profile_training(dev, target, steps: int = 3):
                      "wall_ms_per_step": wall_ms,
                      "idle_share": (1.0 - device_ms / steps / wall_ms
                                     if device else None)}
+        bound_line("timing", f"sru_{kind}_step", step, wall_ms,
+                   device_ms=device_ms / steps)
     emit({"phase": "timing", "training_step_profile": out,
           "note": "device time is None where the profiler saw no kernels"})
     return out
@@ -3391,7 +3672,7 @@ def phase_timing(dev, max_err, counts, smi_line, target):
         x, packed, scales = qmm_inputs(shape, bits, 20 + bits, dev)
         w_deq = (ref.unpack_weights(packed, bits, shape[1]).to(torch.float32)
                  * scales[None, :])
-        b, by = bound_ms(*qmm_cost(shape, packed))
+        b, by = bound_ms(qmm_cost(shape, packed))
 
         def call():
             ops.quant_matmul(x, packed, scales, bits)
@@ -3414,8 +3695,9 @@ def phase_timing(dev, max_err, counts, smi_line, target):
             x_bf = x.to(torch.bfloat16)
             emit({"phase": "timing", "dense_bf16_head_ms": graph_ms(
                 lambda: torch.matmul(x_bf, w_bf))["median"], "shape": shape,
-                "bound_ms": bound_ms(2 * (shape[1] * shape[2] + shape[0] * (
-                    shape[1] + shape[2])), 0)[0]})
+                "bound_ms": bound_ms(ops.KernelCost(0, 0, (2 * (
+                    shape[1] * shape[2] + shape[0] * (shape[1] + shape[2])),),
+                    0))[0]})
             del w_bf
     out = []
     for k in kernels:
@@ -3467,6 +3749,7 @@ def main() -> int:
         ("xlstm_search", phase_xlstm_search, (dev,)),
         ("moe_lm", phase_moe_lm, (dev,)))]
     family_counts, family_heads = timed("families", phase_families, dev)
+    timed("roofline", phase_roofline, dev)
     paths += [family_counts, timed("examples", phase_examples, dev)]
     max_err["quant_matmul"] = max([max_err["quant_matmul"]] + [
         r["max_abs_err"] for r in family_heads])
@@ -3474,6 +3757,10 @@ def main() -> int:
         counts = {k: counts[k] + path_counts[k] for k in counts}
     kernels = timed("timing", phase_timing, dev, max_err, counts, smi_line,
                     target)
+    emit({"phase": "roofline", "bounds": [
+        {k: row[k] for k in ("phase", "bound", "measured_ms", "floor_ms",
+                             "share")} for row in BOUNDS],
+        "count_s": sum(row.get("count_s", 0.0) for row in BOUNDS)})
     emit({"phase": "wall_seconds", **wall, "sum": round(sum(wall.values()),
                                                         1)})
     bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")

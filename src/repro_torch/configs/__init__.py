@@ -2,6 +2,20 @@
 architecture of the reference package."""
 import importlib
 
+# the (arch x shape) sweep's architectures, in the reference's order
+ARCH_IDS = (
+    "jamba-1.5-large-398b",
+    "granite-moe-1b-a400m",
+    "qwen2-moe-a2.7b",
+    "internvl2-26b",
+    "minicpm-2b",
+    "starcoder2-7b",
+    "stablelm-1.6b",
+    "deepseek-67b",
+    "seamless-m4t-medium",
+    "xlstm-350m",
+)
+
 _MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",

@@ -17,6 +17,14 @@ launches, a wrapper also hands its kernel's name, input tensors and output
 tensors to every callable registered with ``observe_launches`` (the
 contract checker, ``core/contracts.py``, sees the kernels' operands so);
 with none registered this costs one list test.
+
+Each wrapper also reports its work, by formula (``KernelCost``: the
+``*_cost`` function beside it), to every counter registered with
+``report_kernels`` (``roofline/counter.py``), on entry and before it
+branches on the device, and runs its body uncounted: a path counts the
+same whichever lane runs it. Given meta tensors, a wrapper returns meta
+outputs of the right shapes and dtypes; it never launches and never runs
+the plain version there.
 """
 from __future__ import annotations
 
@@ -53,6 +61,142 @@ def observe_launches(fn):
 def _notify(name: str, inputs, outputs) -> None:
     for fn in _OBSERVERS:
         fn(name, tuple(inputs), tuple(outputs))
+
+
+_COUNTERS: list = []
+
+
+@contextlib.contextmanager
+def report_kernels(counter):
+    """Inside the block, every wrapper call calls ``counter.kernel_enter(
+    name, cost, operands)`` on entry and ``counter.kernel_exit(outputs)``
+    on return."""
+    _COUNTERS.append(counter)
+    try:
+        yield counter
+    finally:
+        _COUNTERS.remove(counter)
+
+
+class KernelCost(NamedTuple):
+    """A kernel call's work: ``flops`` of its f32 products, the
+    ``elementwise_flops`` of its own arithmetic, the bytes it reads of each
+    operand (``reads``, in the order the wrapper reports its operands) and
+    the bytes it writes."""
+    flops: float
+    elementwise_flops: float
+    reads: tuple
+    write_bytes: float
+
+    @property
+    def hbm_bytes(self) -> float:
+        return sum(self.reads) + self.write_bytes
+
+
+# flops per (lane, sequence, step, channel) of the SRU recurrence: two gate
+# pre-activations (2 mul + 4 add), two sigmoids (neg, exp, add, div each),
+# the state update (2 mul, 2 add) and h (1 mul)
+SCAN_FLOPS = 21
+
+
+def scan_cost(P: int, B: int, T: int, n: int) -> KernelCost:
+    """``sru_scan_pop`` on (P, B, T, n) streams: ``SCAN_FLOPS * P*B*T*n``
+    elementwise; reads uw, uf, ur (4 * P*B*T*n bytes each) and the four (n,)
+    vectors, writes h and r (4 * P*B*T*n each) and c_last (4 * P*B*n)."""
+    elems = P * B * T * n
+    return KernelCost(0, SCAN_FLOPS * elems, (4 * elems,) * 3 + (4 * n,) * 4,
+                      4 * (2 * elems + P * B * n))
+
+
+def bank_mxv_cost(P: int, M: int, m: int, N: int, K: int) -> KernelCost:
+    """``bank_mxv_pop`` on x (P, M, m) and a (K, m, N) bank: ``2*P*M*m*N``
+    f32 FLOPs; reads x, min(P, K) bank rows (each lane's own row, at most
+    K distinct: the count reads no index) and idx, writes (P, M, N)."""
+    return KernelCost(2 * P * M * m * N, 0,
+                      (4 * P * M * m, 4 * min(P, K) * m * N, 4 * P),
+                      4 * P * M * N)
+
+
+def bank_qmm_cost(P: int, M: int, m: int, N: int, containers,
+                  scale_bytes: int) -> KernelCost:
+    """``bank_qmm_pop`` on x (P, M, m) and a packed bank whose four
+    containers (q2, q4, q8, q16) hold ``containers`` bytes each: ``2*P*M*m*N``
+    f32 FLOPs; reads x, idx, min(P, 4) of the four containers' bytes at
+    their mean and the scales, writes (P, M, N)."""
+    share = min(P, 4) / 4
+    return KernelCost(2 * P * M * m * N, 0,
+                      (4 * P * M * m, 4 * P)
+                      + tuple(b * share for b in containers) + (scale_bytes,),
+                      4 * P * M * N)
+
+
+def quant_matmul_cost(M: int, K: int, N: int, packed_bytes: int
+                      ) -> KernelCost:
+    """``quant_matmul`` on x (M, K) and a packed (K, N) weight of
+    ``packed_bytes``: ``2*M*K*N`` f32 FLOPs; reads x, the packed codes and
+    the (N,) scales, writes (M, N) f32."""
+    return KernelCost(2 * M * K * N, 0, (4 * M * K, packed_bytes, 4 * N),
+                      4 * M * N)
+
+
+def _counted(cost_of):
+    """Decorate a wrapper: with a counter registered (``report_kernels``),
+    report ``cost_of(*args)`` = (cost, operands) on entry, and hand the
+    outputs on return."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not _COUNTERS:
+                return fn(*args, **kwargs)
+            cost, operands = cost_of(*args)
+            counters = tuple(_COUNTERS)
+            for c in counters:
+                c.kernel_enter(fn.__name__, cost, operands)
+            out = None
+            try:
+                out = fn(*args, **kwargs)
+                return out
+            finally:
+                for c in reversed(counters):
+                    c.kernel_exit(out)
+        return wrapper
+    return wrap
+
+
+def _meta(*shapes):
+    return tuple(torch.empty(s, dtype=torch.float32, device="meta")
+                 for s in shapes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _scan_report(uw, uf, ur, v_f, v_r, b_f, b_r):
+    shape = tuple(uw.shape) if uw.ndim == 4 else (1,) + tuple(uw.shape)
+    return scan_cost(*shape), (uw, uf, ur, v_f, v_r, b_f, b_r)
+
+
+def _mxv_report(x, bank, idx, config=None):
+    P, M, m = x.shape
+    return bank_mxv_cost(P, M, m, bank.shape[2], bank.shape[0]), (x, bank,
+                                                                   idx)
+
+
+def _qmm_pop_report(x, packed, idx, config=None):
+    P, M, m = x.shape
+    keys = ("q2", "q4", "q8", "q16")
+    cost = bank_qmm_cost(P, M, m, packed["q8"].shape[1],
+                         [_nbytes(packed[k]) for k in keys],
+                         _nbytes(packed["scale"]))
+    return cost, (x, idx) + tuple(packed[k] for k in keys) + (
+        packed["scale"],)
+
+
+def _qmm_report(x, packed_w, scales, bits):
+    M, K = x.shape
+    return (quant_matmul_cost(M, K, packed_w.shape[1], _nbytes(packed_w)),
+            (x, packed_w, scales))
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -137,11 +281,16 @@ def _launch_scan(uw, uf, ur, v_f, v_r, b_f, b_r):
     return h, r, c_last, True
 
 
+@_counted(_scan_report)
 def sru_scan_pop(uw, uf, ur, v_f, v_r, b_f, b_r):
     """Population SRU scan. uw/uf/ur: (P, B, T, n) f32, one quantization
     lane each; v/b: (n,) f32 shared. Returns (h, r, c_last). The streams
     may be column slices of one (P, B, T, 3n) MxV output; the caller
-    applies the highway skip and the backward direction's time flips."""
+    applies the highway skip and the backward direction's time flips.
+    Count: ``scan_cost(P, B, T, n)``."""
+    if uw.device.type == "meta":
+        P, B, T, n = uw.shape
+        return _meta((P, B, T, n), (P, B, T, n), (P, B, n))
     if uw.device.type == "cpu":
         return ref.sru_scan_pop_ref(uw, uf, ur, v_f, v_r, b_f, b_r)
     h, r, c, launched = _launch_scan(uw, uf, ur, v_f, v_r, b_f, b_r)
@@ -151,9 +300,14 @@ def sru_scan_pop(uw, uf, ur, v_f, v_r, b_f, b_r):
     return h, r, c
 
 
+@_counted(_scan_report)
 def sru_scan(uw, uf, ur, v_f, v_r, b_f, b_r):
     """Single-lane SRU scan: (B, T, n) streams -> h, r (B, T, n), c_last
-    (B, n). On the card it launches the population kernel with P = 1."""
+    (B, n). On the card it launches the population kernel with P = 1.
+    Count: ``scan_cost(1, B, T, n)``."""
+    if uw.device.type == "meta":
+        B, T, n = uw.shape
+        return _meta((B, T, n), (B, T, n), (B, n))
     if uw.device.type == "cpu":
         return ref.sru_scan_ref(uw, uf, ur, v_f, v_r, b_f, b_r)
     h, r, c, launched = _launch_scan(uw[None], uf[None], ur[None],
@@ -277,6 +431,7 @@ def _check_mxv_x(name, x, idx, m):
            f"got {idx.dtype} {tuple(idx.shape)}")
 
 
+@_counted(_mxv_report)
 def bank_mxv_pop(x, bank, idx, config: Optional[int] = None):
     """Population MxV against a quantized-weight bank: x (P, M, m) f32,
     bank (K, m, N) f32 (the K menu-entry fake-quantizations of one weight),
@@ -285,7 +440,9 @@ def bank_mxv_pop(x, bank, idx, config: Optional[int] = None):
     gathered copy exists. A lane whose index is out of range gets NaN.
     ``config`` forces a tile configuration (``BANK_CONFIGS``) on the card;
     by default ``bank_config`` picks one. Every configuration gives bitwise
-    the same output."""
+    the same output. Count: ``bank_mxv_cost(P, M, m, N, K)``."""
+    if x.device.type == "meta":
+        return _meta((x.shape[0], x.shape[1], bank.shape[2]))[0]
     if x.device.type == "cpu":
         return ref.bank_mxv_pop_ref(x, bank, idx)
     name = "bank_mxv_pop"
@@ -314,6 +471,7 @@ def bank_mxv_pop(x, bank, idx, config: Optional[int] = None):
     return out
 
 
+@_counted(_qmm_pop_report)
 def bank_qmm_pop(x, packed, idx, config: Optional[int] = None):
     """Population MxV against a PACKED bank
     (``quantization.build_packed_weight_bank`` dict for a (m, N) weight):
@@ -321,7 +479,9 @@ def bank_qmm_pop(x, packed, idx, config: Optional[int] = None):
     order. Returns (P, M, N), ``out[p] = x[p] @ dequant(packed)[idx[p]]``.
     The kernel reads only the selected container and dequantizes it on the
     way to shared memory; the (4, 1) scale column is read as it is stored.
-    ``config`` as for ``bank_mxv_pop``."""
+    ``config`` as for ``bank_mxv_pop``. Count: ``bank_qmm_cost``."""
+    if x.device.type == "meta":
+        return _meta((x.shape[0], x.shape[1], packed["q8"].shape[1]))[0]
     if x.device.type == "cpu":
         return ref.bank_qmm_pop_ref(x, packed, idx)
     name = "bank_qmm_pop"
@@ -420,12 +580,16 @@ def quant_matmul_occupancy(M: int, N: int, bits: int) -> Dict[str, int]:
     return {"blocks": out[0], "blocks_per_sm": out[1]}
 
 
+@_counted(_qmm_report)
 def quant_matmul(x, packed_w, scales, bits: int):
     """y = x @ (unpack(packed_w, bits) * scales[None, :]): x (M, K) f32,
     packed_w (ceil(K * bits / 8), N) int8 (``pack_for_kernel``), scales
     (N,) f32, bits in {2, 4, 8}. Returns (M, N) f32. Shapes and packing
-    that do not fit raise ``ValueError`` on every device."""
+    that do not fit raise ``ValueError`` on every device. Count:
+    ``quant_matmul_cost(M, K, N, packed bytes)``."""
     _check_qmm(x, packed_w, scales, bits)
+    if x.device.type == "meta":
+        return _meta((x.shape[0], packed_w.shape[1]))[0]
     if x.device.type == "cpu":
         return ref.quant_matmul_ref(x, packed_w, scales, bits)
     name = "quant_matmul"

@@ -1,0 +1,373 @@
+"""Dry run of every (arch x shape) cell on one H100: build the cell's step
+on meta tensors, reckon whether it fits the card, and price it.
+
+Counterpart of the reference package's ``launch/dryrun.py``, which lowers
+and compiles each cell for a TPU mesh, reads XLA's memory analysis and
+prices the HLO. Here the step is the port's own (``make_train_step`` with
+the reference's ``_auto_accum`` rule, ``make_serve_prefill`` or
+``make_serve_decode``; with ``--serve-wbits`` the decode step dequantizes
+the whole ``quantize_tree`` tree first, as the reference does), run once
+on meta tensors under ``roofline/counter.py``: the FLOPs, bytes and kernel
+launches it dispatches, and the bytes it holds alive, in place of the
+compiler's analyses. Nothing compiles: ``lower_s`` is the seconds the spec
+trees took to build, ``compile_s`` is 0, ``analyze_s`` the count's.
+
+    python -m repro_torch.launch.dryrun --arch deepseek-67b --shape train_4k
+    python -m repro_torch.launch.dryrun --all [--out experiments/torch_dryrun]
+    python -m repro_torch.launch.dryrun --arch xlstm-350m --shape decode_32k \\
+        --run-on-card [--serve-wbits 8]
+
+``--mesh single`` is one H100 here (the reference's ``single`` is a 16 x 16
+TPU pod, its ``launch/mesh.py:15``). The reference's sharding and
+cross-shard levers, ``--mesh multi|both``, ``--rules`` and
+``--bf16-partials``, exit non-zero: the port has no mesh until ROADMAP
+item 9. A cell that does not fit one card is a finding, not a failure: its
+status stays ``ok`` with ``fits`` false. ``--run-on-card`` also runs one
+real step of each cell that fits on the card, at full size on seeded
+weights: the median of 5 timed steps after one warm-up,
+``torch.cuda.max_memory_allocated`` beside the reckoned peak, and
+``floor_s`` over the measured time.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+import traceback
+
+import torch
+from torch.overrides import TorchFunctionMode
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs.base import SHAPES, SHAPES_BY_NAME, \
+    reduced_shape, shape_applicable
+from repro_torch.core import quantization as Q
+from repro_torch.models import common as cm
+from repro_torch.models import transformer as tfm
+from repro_torch.models.registry import get_model, input_specs, \
+    make_dummy_batch
+from repro_torch.roofline import counter
+from repro_torch.roofline.report import H100_HBM_CAPACITY_BYTES, \
+    RooflineReport, model_flops_for
+from repro_torch.training import optimizer as opt
+from repro_torch.training import train_step as ts
+
+WAITS = "waits for ROADMAP item 9 (the port has no mesh yet)"
+# Activation budget of _auto_accum: the remat-saved layer inputs of one
+# microbatch. The reference allows 6 GiB of a 16 GiB TPU chip; the same
+# share of an 80 GB card is 30 GiB, which leaves the rest for the
+# parameters, the optimizer state and one block's recomputation.
+ACT_BUDGET_GIB = 6.0 * 80 / 16
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every factory call made on meta and every random draw dropped: the
+    port's ``init_*`` take a ``torch.Generator`` and a device, and a meta
+    generator does not exist."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        kwargs.pop("generator", None)
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
+
+
+def _to_meta(tree):
+    if isinstance(tree, dict):
+        return {k: _to_meta(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.device.type != "meta":
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    return tree
+
+
+def on_meta(fn, *args):
+    """``fn(*args)`` with every tensor it makes on meta (no storage, no
+    random number drawn); the counterpart of ``jax.eval_shape``."""
+    with _OnMeta():
+        return _to_meta(fn(*args))
+
+
+def param_specs(model):
+    return on_meta(model.init, 0)
+
+
+def train_state_specs(model):
+    return on_meta(ts.init_train_state, model)
+
+
+def cache_specs(model, batch: int, max_len: int):
+    return on_meta(model.init_cache, batch, max_len)
+
+
+def quant_specs(pspecs, bits: int):
+    """``quantize_tree`` of the param specs: int8 codes (int4 packed) and
+    f32 scales, on meta."""
+    return on_meta(Q.quantize_tree, pspecs, bits)
+
+
+def _auto_accum(cfg, shape, start: int, budget_gib: float = ACT_BUDGET_GIB
+                ) -> int:
+    """The reference's rule with one device (dp = 1): grad-accumulation so
+    that remat-saved layer inputs (L x B_micro x S x D bf16) fit the
+    activation budget; the microbatch stays >= 1."""
+    dp = 1
+    accum = max(1, start)
+    layers = cfg.n_layers + getattr(cfg, "n_dec_layers", 0)
+    while True:
+        b_dev = max(shape.global_batch // (dp * accum), 1)
+        resid_gib = layers * b_dev * shape.seq_len * cfg.d_model * 2 / 2**30
+        if resid_gib <= budget_gib:
+            return accum
+        if shape.global_batch // (dp * accum * 2) < 1 or \
+                shape.global_batch % (dp * accum * 2) != 0:
+            return accum
+        accum *= 2
+
+
+def build_step(cfg, shape, *, accum_steps: int = 2, serve_wbits: int = 0,
+               device=None):
+    """The cell's step and its arguments: on meta tensors (``device``
+    None), or drawn on ``device`` from seed 0. Returns (step, args,
+    accum_steps or None)."""
+    real = device is not None
+    model = get_model(cfg, device=device if real else "cpu")
+    specs = input_specs(cfg, shape)
+    static = {}
+    if "max_len" in specs:
+        static["max_len"] = specs.pop("max_len")
+    batch = make_dummy_batch(cfg, shape, device=device) if real else specs
+    batch.pop("max_len", None)
+    if shape.kind == "train":
+        accum = _auto_accum(cfg, shape, accum_steps)
+        state = ts.init_train_state(model) if real \
+            else train_state_specs(model)
+        step = ts.make_train_step(model, opt.AdamWConfig(),
+                                  accum_steps=accum)
+        return step, (state, batch), accum
+    params = model.init(0) if real else param_specs(model)
+    if shape.kind == "prefill":
+        return ts.make_serve_prefill(model, static), (params, batch), None
+    cache = model.init_cache(shape.global_batch, shape.seq_len) if real \
+        else cache_specs(model, shape.global_batch, shape.seq_len)
+    if not serve_wbits:
+        return ts.make_serve_decode(model), (params, cache, batch), None
+    step = make_wbits_decode(model, Q.tree_spec(params), serve_wbits)
+    qparams = Q.quantize_tree(params, serve_wbits) if real \
+        else quant_specs(params, serve_wbits)
+    del params
+    return step, (qparams, cache, batch), None
+
+
+def make_wbits_decode(model, pspecs, bits: int):
+    """The reference's weight-quantized decode step (its dryrun.py:
+    161-165): ``step(qparams, cache, batch)`` dequantizes the whole
+    ``quantize_tree`` tree (``pspecs``: the params' shapes and dtypes) and
+    runs the decode step on it, for every family (the hybrid's nested
+    Mamba stacks included)."""
+    base_step = ts.make_serve_decode(model)
+
+    def step(qparams, cache, batch):
+        return base_step(Q.dequantize_tree(qparams, pspecs, bits), cache,
+                         batch)
+    return step
+
+
+def _levers(moe_group: int, moe_dispatch: str, kv_cache_int8: bool):
+    """Set the reference's perf levers; returns their old values."""
+    old = (cm.MOE_GROUP_SIZE, cm.MOE_DISPATCH, tfm.KV_CACHE_DTYPE)
+    if moe_group:
+        cm.MOE_GROUP_SIZE = moe_group
+    if moe_dispatch:
+        cm.MOE_DISPATCH = moe_dispatch
+    if kv_cache_int8:
+        tfm.KV_CACHE_DTYPE = torch.int8
+    return old
+
+
+def _restore(old) -> None:
+    cm.MOE_GROUP_SIZE, cm.MOE_DISPATCH, tfm.KV_CACHE_DTYPE = old
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_on_card(cfg, shape, *, accum_steps: int = 2, serve_wbits: int = 0,
+                device="cuda", reps: int = 5) -> dict:
+    """One real step of the cell on ``device`` at full size, on weights
+    drawn from seed 0: the median and range of ``reps`` timed steps after
+    one warm-up; on a card the bytes its arguments hold and the peak of
+    allocated memory over the steps, both net of what was allocated
+    before the arguments were made."""
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    base = torch.cuda.memory_allocated(dev) if cuda else None
+    step, args, _ = build_step(cfg, shape, accum_steps=accum_steps,
+                               serve_wbits=serve_wbits, device=dev)
+    _sync(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) - base if cuda else None
+    step(*args)
+    _sync(dev)
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step(*args)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"ms": statistics.median(ms), "ms_min": min(ms), "ms_max": max(ms),
+           "reps": reps, "argument_bytes": held,
+           "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                    - base if cuda else None)}
+    del step, args
+    return out
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
+             verbose: bool = True, accum_steps: int = 2,
+             moe_group: int = 0, moe_dispatch: str = "",
+             serve_wbits: int = 0, kv_cache_int8: bool = False,
+             run_card: bool = False, reduced: bool = False) -> dict:
+    """One cell: its JSON artifact as a dict (``reduced``: the config's
+    and the shape's CPU-test sizes, ``reduced()`` and ``reduced_shape``)."""
+    if mesh_kind != "single":
+        raise NotImplementedError(f"--mesh {mesh_kind} {WAITS}")
+    cfg = get_config(arch)
+    shape = SHAPES_BY_NAME[shape_name]
+    skip = shape_applicable(cfg, shape)
+    if reduced:
+        cfg, shape = cfg.reduced(), reduced_shape(shape)
+    if skip:
+        return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+                "status": "skip", "reason": skip}
+    old = _levers(moe_group, moe_dispatch, kv_cache_int8)
+    try:
+        t0 = time.time()
+        step, args, accum = build_step(cfg, shape, accum_steps=accum_steps,
+                                       serve_wbits=serve_wbits
+                                       if shape.kind == "decode" else 0)
+        t_lower = time.time() - t0
+        t0 = time.time()
+        counts = counter.count(step, *args)
+        t_analyze = time.time() - t0
+        del step, args
+        card = None
+        fits = counts.reckoned_peak_bytes < H100_HBM_CAPACITY_BYTES
+        if run_card and fits:
+            card = run_on_card(cfg, shape, accum_steps=accum_steps,
+                               serve_wbits=serve_wbits
+                               if shape.kind == "decode" else 0)
+    finally:
+        _restore(old)
+    rep = RooflineReport.build(
+        arch=arch, shape=shape_name, mesh=mesh_kind, n_devices=1,
+        counts=counts, model_flops=model_flops_for(cfg, shape))
+    out = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+           "status": "ok", "fsdp": False,
+           "accum_steps": accum if shape.kind == "train" else None,
+           "lower_s": round(t_lower, 2), "compile_s": 0.0,
+           "analyze_s": round(t_analyze, 2),
+           "memory_analysis": {
+               "argument_bytes": counts.argument_bytes,
+               "output_bytes": counts.output_bytes,
+               "temp_bytes": counts.temp_bytes,
+               "alias_bytes": counts.alias_bytes,
+           },
+           "cost_analysis": {},
+           "roofline": json.loads(rep.to_json()),
+           "n_devices": 1, "fits": bool(fits),
+           "reckoned_peak_bytes": counts.reckoned_peak_bytes,
+           "floor_s": rep.floor_s, "serve_wbits": serve_wbits,
+           "kv_cache_int8": kv_cache_int8}
+    if card is not None:
+        card["floor_over_measured"] = rep.floor_s * 1e3 / card["ms"]
+        card["reckoned_peak_bytes"] = counts.reckoned_peak_bytes
+        out["card"] = card
+    if verbose:
+        print("  " + rep.summary_row())
+        print(f"  mem: args={counts.argument_bytes/2**30:.2f}GiB "
+              f"temp={counts.temp_bytes/2**30:.2f}GiB "
+              f"out={counts.output_bytes/2**30:.2f}GiB fits={fits} "
+              f"(specs {t_lower:.1f}s count {t_analyze:.1f}s)")
+        if card is not None:
+            print(f"  card: {card['ms']:.3f} ms, peak "
+                  f"{card['max_memory_allocated']/2**30:.2f}GiB, floor/measured "
+                  f"{card['floor_over_measured']:.3f}")
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default="experiments/torch_dryrun")
+    ap.add_argument("--rules", default=None,
+                    help=f"sharding-rule overrides: {WAITS}")
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--accum", type=int, default=2,
+                    help="grad-accumulation microbatches for train shapes")
+    ap.add_argument("--bf16-partials", action="store_true",
+                    help=f"bf16 cross-shard partial sums: {WAITS}")
+    ap.add_argument("--moe-group", type=int, default=0,
+                    help="perf lever: MoE token-group size")
+    ap.add_argument("--moe-dispatch", default="",
+                    choices=["", "einsum", "gather"],
+                    help="perf lever: MoE dispatch algorithm")
+    ap.add_argument("--serve-wbits", type=int, default=0, choices=[0, 4, 8],
+                    help="perf lever: weight-quantized serving (decode)")
+    ap.add_argument("--kv-cache-int8", action="store_true",
+                    help="perf lever: int8 KV cache (decode)")
+    ap.add_argument("--run-on-card", action="store_true",
+                    help="also run one real step of each cell that fits on "
+                         "the card")
+    args = ap.parse_args(argv)
+    unported = [flag for flag, on in (
+        (f"--mesh {args.mesh}", args.mesh != "single"),
+        ("--rules", args.rules is not None),
+        ("--bf16-partials", args.bf16_partials)) if on]
+    if unported:
+        print(f"[dryrun] {', '.join(unported)} {WAITS}", file=sys.stderr)
+        return 2
+
+    archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]
+    shapes = [s.name for s in SHAPES] if (args.all or not args.shape) \
+        else [args.shape]
+    os.makedirs(args.out, exist_ok=True)
+    failures = 0
+    for arch in archs:
+        for shape in shapes:
+            tag = f"{arch}_{shape}_{args.mesh}" + \
+                (f"_{args.tag}" if args.tag else "")
+            print(f"[dryrun] {tag}", flush=True)
+            try:
+                res = run_cell(arch, shape, args.mesh,
+                               accum_steps=args.accum,
+                               moe_group=args.moe_group,
+                               moe_dispatch=args.moe_dispatch,
+                               serve_wbits=args.serve_wbits,
+                               kv_cache_int8=args.kv_cache_int8,
+                               run_card=args.run_on_card)
+            except Exception as e:
+                traceback.print_exc()
+                res = {"arch": arch, "shape": shape, "mesh": args.mesh,
+                       "status": "fail", "error": f"{type(e).__name__}: {e}"}
+                failures += 1
+            if res["status"] == "skip":
+                print(f"  SKIP: {res['reason']}")
+            with open(os.path.join(args.out, tag + ".json"), "w") as f:
+                json.dump(res, f, indent=1)
+    print(f"[dryrun] done, {failures} failures")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,6 +28,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.roofline.counter import trips
+
 DENSE_ATTN_MAX = 8192   # the reference's limit of its materialized-score path
 # MoE dispatch, read at call time as in the reference: the token-group size
 # and the algorithm ("einsum": GShard one-hot products; "gather": the top-C
@@ -168,7 +170,9 @@ def _flash_attention(qg, k, v, q_offset, kv_valid, chunk_q, chunk_k,
     and sum ``l`` in f32 (``-1e30`` marks a masked score, and ``m`` starts
     there), ``p`` rounded to v's dtype before the PV product (f32 sums),
     padded keys masked by ``valid``; the output is ``acc / max(l,
-    1e-30)``. Returns (B, Tq, H, d) f32."""
+    1e-30)``. Returns (B, Tq, H, d) f32. Every trip of either loop has the
+    same shapes, so under a roofline counter each runs once with its
+    counts multiplied by its trip count (``roofline/counter.py::trips``)."""
     B, Tq, KV, G, d = qg.shape
     Tk = k.shape[1]
     nq, nk = -(-Tq // chunk_q), -(-Tk // chunk_k)
@@ -186,7 +190,7 @@ def _flash_attention(qg, k, v, q_offset, kv_valid, chunk_q, chunk_k,
     dev = qg.device
     out = torch.empty((B, nq * chunk_q, KV, G, d), dtype=torch.float32,
                       device=dev)
-    for qi in range(nq):
+    for qi in trips(nq):
         qchunk = qg[:, qi * chunk_q:(qi + 1) * chunk_q].to(torch.float32)
         qpos = q_offset + qi * chunk_q + torch.arange(chunk_q, device=dev)
         m = torch.full((B, KV, G, chunk_q), -1e30, dtype=torch.float32,
@@ -194,7 +198,7 @@ def _flash_attention(qg, k, v, q_offset, kv_valid, chunk_q, chunk_k,
         l = torch.zeros((B, KV, G, chunk_q), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, KV, G, chunk_q, d), dtype=torch.float32,
                           device=dev)
-        for ki in range(nk):
+        for ki in trips(nk):
             kch = k[:, ki * chunk_k:(ki + 1) * chunk_k]
             vch = v[:, ki * chunk_k:(ki + 1) * chunk_k]
             kpos = ki * chunk_k + torch.arange(chunk_k, device=dev)

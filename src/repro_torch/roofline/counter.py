@@ -1,0 +1,431 @@
+"""Count a step's work: FLOPs, HBM bytes, kernel launches and live memory.
+
+Counterpart of the reference package's ``roofline/hlo_analysis.py``. The
+reference parses the compiled step's HLO; an eager program has none, so
+``count(fn, *args)`` runs ``fn`` under a ``TorchDispatchMode`` and counts
+what it dispatches, on an executed run (CPU or card) or on meta tensors
+(shapes and dtypes, no storage: the counterpart of ``jax.eval_shape``).
+
+- ``flops``: the matmul-class aten ops (mm, bmm, addmm, baddbmm,
+  convolution, SDPA), with the formulas of ``torch.utils.flop_counter``'s
+  ``flop_registry``, plus the kernels' GEMMs; the reference also counts
+  only dots and convolutions. ``flops_by_dtype`` splits them by operand
+  dtype, so that ``report.py`` prices a bf16 product at the tensor-core
+  rate and an f32 product at the CUDA-core rate.
+- ``hbm_bytes``: the eager stream. Every aten op is its own kernel, so it
+  reads its operands and writes its outputs; view and metadata ops cost
+  nothing (a broadcast operand is charged its distinct elements). The
+  counterpart of the reference's "bytes at fusion boundaries".
+- The kernel wrappers of ``kernels/ops.py`` report their own counts on
+  entry, by formula, whichever lane then runs (the CUDA kernel, the plain
+  version on the CPU, or a meta output), and the aten ops of a wrapper's
+  body are not counted: a path counts the same on the CPU, on the card
+  and on meta tensors, and fusing or replacing a kernel does not change
+  the work counted. ``elementwise_flops`` holds the scans' arithmetic.
+- ``min_hbm_bytes``: the floor no implementation beats. Every storage that
+  existed before the step (its arguments and what it closes over) is
+  charged once for what the step reads of it and once for what it writes
+  into it (the views it touches, at most the storage's size; a kernel's
+  bank operand only its rows by index), and every output the step makes is
+  written once.
+- Memory: ``argument_bytes`` (the storages that existed before the step,
+  declared or read), ``temp_bytes`` (the high-water mark of the storages
+  the step made, alive at once) and ``output_bytes`` (those it returns);
+  ``reckoned_peak_bytes`` is the first plus the second. Storages are
+  followed by weak references, so a freed intermediate leaves the count.
+- Trip counts: ``trips(n)`` is ``range(n)`` except under a counter, where
+  it runs the body once with its counts multiplied by n, as the reference
+  multiplies a loop body by its trip count (``hlo_analysis.py:265``). The
+  train step's microbatches and the decode loop's tokens use it, and the
+  flash branch's chunk loops (whose every trip has the same shapes).
+  Memory is not multiplied: a folded loop's trips each free what they
+  make.
+
+``top_contributors(fn, *args)`` lists the aten ops and kernels by FLOPs and
+by bytes. A count reads no tensor's values, so meta tensors go through the
+whole step; an op that needs data (``.item()``) raises on meta.
+"""
+from __future__ import annotations
+
+import weakref
+from dataclasses import asdict, dataclass, field
+from typing import Dict, List, NamedTuple, Optional
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+aten = torch.ops.aten
+
+# ops that allocate without writing, or re-view a storage: no bytes
+_ZERO_COST = {aten.empty.memory_format, aten.empty_strided.default,
+              aten.empty_like.default, aten.new_empty.default,
+              aten.new_empty_strided.default, aten._unsafe_view.default,
+              aten.lift_fresh.default, aten.resize_.default,
+              aten.set_.source_Storage_storage_offset}
+# in-place ops that write ``self`` without reading it
+_WRITE_ONLY = {aten.copy_.default, aten.fill_.Scalar, aten.fill_.Tensor,
+               aten.zero_.default, aten.normal_.default,
+               aten.uniform_.default, aten.random_.default}
+
+# ops whose last output / operand is a scratch buffer that only the CPU
+# kernel fills (log_sigmoid's: the CUDA kernel returns it empty); it is
+# not charged, so that a path counts the same on either device
+_SCRATCH_OUT = {aten.log_sigmoid_forward.default}
+_SCRATCH_IN = {aten.log_sigmoid_backward.default: 2}
+
+_ACTIVE: List["Counter"] = []
+
+
+@dataclass
+class RooflineCounts:
+    """One step's counts (the reference's fields first)."""
+    flops: float = 0.0
+    hbm_bytes: float = 0.0
+    ici_bytes: float = 0.0
+    collective_bytes_by_type: Dict[str, float] = field(default_factory=dict)
+    n_collectives: int = 0
+    flops_by_dtype: Dict[str, float] = field(default_factory=dict)
+    elementwise_flops: float = 0.0
+    min_hbm_bytes: float = 0.0
+    launches: Dict[str, float] = field(default_factory=dict)
+    argument_bytes: int = 0
+    temp_bytes: int = 0
+    output_bytes: int = 0
+    alias_bytes: int = 0          # written in place into older storages
+    n_ops: int = 0
+
+    @property
+    def reckoned_peak_bytes(self) -> int:
+        return self.argument_bytes + self.temp_bytes
+
+    def as_dict(self) -> dict:
+        out = asdict(self)
+        out["reckoned_peak_bytes"] = self.reckoned_peak_bytes
+        return out
+
+
+def _distinct_bytes(t: torch.Tensor) -> int:
+    """Bytes of the distinct elements a view spans (a stride-0 axis, a
+    broadcast, is read once)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if size == 0:
+            return 0
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def _view_key(t: torch.Tensor):
+    return (t.storage_offset(), tuple(t.shape), tuple(t.stride()))
+
+
+def _tensors(obj):
+    """The tensors in a (nested) tuple / list / dict of an op's args or a
+    step's result."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            yield from _tensors(x)
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            yield from _tensors(x)
+
+
+def _meta_key(obj):
+    """A hashable key of an op's arguments that fixes the metadata of its
+    result on meta tensors: each tensor's shape, strides and dtype, each
+    other argument with its type (1, 1.0 and True promote differently)."""
+    if isinstance(obj, torch.Tensor):
+        return (tuple(obj.shape), tuple(obj.stride()), obj.dtype)
+    if isinstance(obj, (tuple, list)):
+        return (type(obj),) + tuple(_meta_key(x) for x in obj)
+    return (type(obj), obj)
+
+
+class _OpInfo(NamedTuple):
+    view: bool            # returns a view: no bytes, no storage
+    aliasing: bool        # mutates or aliases an argument
+    mutable: bool
+    written: tuple        # indices of the arguments it writes in place
+    zero_cost: bool
+    write_only: bool
+    scratch_out: bool
+    scratch_in: Optional[int]
+    formula: object       # flop_registry's formula, or None
+    name: str
+
+
+_OP_INFO: Dict = {}
+
+
+def _op_info(func) -> _OpInfo:
+    """What the counter needs of an op's schema, read once an op."""
+    info = _OP_INFO.get(func)
+    if info is None:
+        schema = func._schema
+        info = _OP_INFO[func] = _OpInfo(
+            view=any(r.alias_info is not None and not r.alias_info.is_write
+                     for r in schema.returns),
+            aliasing=schema.is_mutable or any(r.alias_info is not None
+                                              for r in schema.returns),
+            mutable=schema.is_mutable,
+            written=tuple(i for i, a in enumerate(schema.arguments)
+                          if a.alias_info is not None
+                          and a.alias_info.is_write),
+            zero_cost=func in _ZERO_COST, write_only=func in _WRITE_ONLY,
+            scratch_out=func in _SCRATCH_OUT,
+            scratch_in=_SCRATCH_IN.get(func),
+            formula=flop_registry.get(func.overloadpacket),
+            name=str(func.overloadpacket.__name__))
+    return info
+
+
+def _flat(seq, out: list) -> list:
+    """Append the tensors of ``seq`` (nested tuples and lists) to ``out``."""
+    for x in seq:
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, (tuple, list)):
+            _flat(x, out)
+    return out
+
+
+class Counter(TorchDispatchMode):
+    """The dispatch mode behind ``count``; use it as a context manager to
+    count a block (``finish(result)`` then gives the counts)."""
+
+    def __init__(self, arguments=(), fold_trips: bool = True):
+        super().__init__()
+        self.fold_trips = fold_trips
+        self.counts = RooflineCounts()
+        self.by_op: Dict[str, List[float]] = {}     # name: [flops, bytes, calls]
+        self._mult = 1
+        self._suppress = 0
+        self._open = False
+        self._made: Dict[int, int] = {}            # live storages of the step
+        self._live = 0
+        self._peak = 0
+        self._pre: Dict[int, int] = {}             # older storages: bytes
+        self._reads: Dict[int, Dict] = {}
+        self._writes: Dict[int, Dict] = {}
+        self._meta_cache: Dict = {}
+        for t in _tensors(arguments):
+            self._note_pre(t)
+
+    # ---------------------------------------------------------- storages
+    def _note_pre(self, t: torch.Tensor) -> Optional[int]:
+        """The key of ``t``'s storage if it existed before the step (so it
+        is charged to the arguments), else None."""
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._made:
+            return None
+        if key not in self._pre:
+            self._pre[key] = st.nbytes()
+        return key
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._made or key in self._pre:
+            return
+        nbytes = st.nbytes()
+        self._made[key] = nbytes
+        self._live += nbytes
+        self._peak = max(self._peak, self._live)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key: int) -> None:
+        if self._open:
+            self._live -= self._made.pop(key, 0)
+
+    def _touch(self, book: Dict, t: torch.Tensor, nbytes: float) -> None:
+        key = self._note_pre(t)
+        if key is not None:
+            views = book.setdefault(key, {})
+            vk = _view_key(t)
+            views[vk] = views.get(vk, 0) + nbytes * self._mult
+
+    # ---------------------------------------------------------- counting
+    def _add(self, name: str, flops: float, dtype: str, nbytes: float,
+             elementwise: float = 0.0) -> None:
+        c, m = self.counts, self._mult
+        if flops:
+            c.flops += flops * m
+            c.flops_by_dtype[dtype] = c.flops_by_dtype.get(dtype, 0.0) \
+                + flops * m
+        c.elementwise_flops += elementwise * m
+        c.hbm_bytes += nbytes * m
+        c.n_ops += 1
+        row = self.by_op.setdefault(name, [0.0, 0.0, 0])
+        row[0] += (flops + elementwise) * m
+        row[1] += nbytes * m
+        row[2] += m
+
+    def kernel_enter(self, name: str, cost, operands) -> None:
+        """A kernel wrapper's report (``kernels/ops.py``): its ``KernelCost``
+        and the operands its ``reads`` are of; the wrapper's own ops are not
+        counted until ``kernel_exit``."""
+        if not self._suppress:
+            self._add(name, cost.flops, "float32", cost.hbm_bytes,
+                      cost.elementwise_flops)
+            self.counts.launches[name] = self.counts.launches.get(name, 0) \
+                + self._mult
+            for t, nbytes in zip(operands, cost.reads):
+                self._touch(self._reads, t, nbytes)
+        self._suppress += 1
+
+    def kernel_exit(self, out) -> None:
+        self._suppress -= 1
+        for t in _tensors(out):
+            self._track(t)
+
+    def _run(self, func, info, args, kwargs, ts):
+        """``func`` on its arguments; on meta tensors a result of the same
+        metadata is remade from a cache (the meta kernels of elementwise
+        ops are Python reference code, ~100 us a call)."""
+        if info.aliasing or not ts or any(t.device.type != "meta"
+                                          for t in ts):
+            return func(*args, **kwargs)
+        key = (func, _meta_key(args), _meta_key(tuple(sorted(
+            kwargs.items()))))
+        spec = self._meta_cache.get(key)
+        if spec is None:
+            out = func(*args, **kwargs)
+            outs = (out,) if isinstance(out, torch.Tensor) else out
+            if isinstance(outs, (tuple, list)) and all(
+                    isinstance(o, torch.Tensor) for o in outs):
+                self._meta_cache[key] = (
+                    isinstance(out, torch.Tensor),
+                    tuple((tuple(o.shape), o.stride(), o.dtype)
+                          for o in outs))
+            return out
+        single, outs = spec
+        made = tuple(torch.empty_strided(shape, stride, dtype=dtype,
+                                         device="meta")
+                     for shape, stride, dtype in outs)
+        return made[0] if single else made
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        info = _op_info(func)
+        ts = _flat(args, [])
+        if kwargs:
+            _flat(kwargs.values(), ts)
+        out = self._run(func, info, args, kwargs, ts)
+        if self._suppress or info.view:
+            return out                  # a view: no bytes, no storage
+        outs = _flat((out,), [])
+        if info.scratch_out:
+            outs = outs[:-1]
+        if not info.mutable:
+            for t in outs:
+                self._track(t)
+        if info.zero_cost:
+            return out
+        written = [args[i] for i in info.written if i < len(args)
+                   and isinstance(args[i], torch.Tensor)]
+        if info.scratch_in is not None:
+            skip = args[info.scratch_in]
+            ts = [t for t in ts if t is not skip]
+        nbytes = 0
+        for t in ts:
+            if info.write_only and any(t is w for w in written):
+                continue
+            b = _distinct_bytes(t)
+            nbytes += b
+            self._touch(self._reads, t, b)
+        for t in written or outs:
+            b = _distinct_bytes(t)
+            nbytes += b
+            if written:
+                self._touch(self._writes, t, b)
+        flops, dtype = 0, ""
+        if info.formula is not None:
+            flops = info.formula(*args, **kwargs, out_val=out)
+            dtype = str(ts[0].dtype).replace("torch.", "") if ts \
+                else "float32"
+        self._add(info.name, flops, dtype, nbytes)
+        return out
+
+    # ---------------------------------------------------------- lifecycle
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._open = True
+        self._reporting = ops.report_kernels(self)
+        self._reporting.__enter__()
+        _ACTIVE.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            _ACTIVE.remove(self)
+            self._reporting.__exit__(*exc)
+
+    def finish(self, result=None) -> RooflineCounts:
+        """The counts, with the memory reckoning and ``min_hbm_bytes``;
+        ``result``: what the step returned (its outputs)."""
+        c = self.counts
+        out_keys = {}
+        for t in _tensors(result):
+            st = t.untyped_storage()
+            if st._cdata in self._made:
+                out_keys[st._cdata] = st.nbytes()
+        c.output_bytes = sum(out_keys.values())
+        c.argument_bytes = sum(self._pre.values())
+        c.temp_bytes = self._peak
+        touched = [sum(min(self._pre[key], sum(views.values()))
+                       for key, views in book.items())
+                   for book in (self._reads, self._writes)]
+        c.alias_bytes = int(touched[1])
+        c.min_hbm_bytes = float(c.output_bytes) + touched[0] + touched[1]
+        self._open = False
+        return c
+
+
+def count(fn, *args, fold_trips: bool = True, **kwargs) -> RooflineCounts:
+    """Run ``fn(*args, **kwargs)`` once and count it (see the module's
+    docstring). ``args``' tensors are the step's arguments; tensors ``fn``
+    closes over count as arguments where the step touches them."""
+    counter = Counter(arguments=(args, kwargs), fold_trips=fold_trips)
+    with counter:
+        result = fn(*args, **kwargs)
+    counts = counter.finish(result)
+    del result
+    return counts
+
+
+def top_contributors(fn, *args, top: int = 12, **kwargs):
+    """The aten ops and kernels of one counted run of ``fn``, the ``top``
+    by FLOPs and the ``top`` by bytes: ``{"by_flops": [(name, flops,
+    bytes, calls)], "by_bytes": [...]}`` (the counterpart of
+    ``hlo_analysis.py:542``, for PERF.md's "where the time goes")."""
+    counter = Counter(arguments=(args, kwargs))
+    with counter:
+        fn(*args, **kwargs)
+    counter.finish()
+    rows = [(name, f, b, n) for name, (f, b, n) in counter.by_op.items()]
+    return {"by_flops": sorted(rows, key=lambda r: -r[1])[:top],
+            "by_bytes": sorted(rows, key=lambda r: -r[2])[:top]}
+
+
+def trips(n: int):
+    """``range(n)``; under a counter that folds trips, the body runs once
+    (index 0) with its counts multiplied by ``n``."""
+    if n <= 1 or not _ACTIVE or not _ACTIVE[-1].fold_trips:
+        return range(n)
+    return _folded(_ACTIVE[-1], n)
+
+
+def _folded(counter: Counter, n: int):
+    counter._mult *= n
+    try:
+        yield 0
+    finally:
+        counter._mult //= n
+

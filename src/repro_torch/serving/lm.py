@@ -29,17 +29,20 @@ from repro_torch.core.quantization import mmse_clip
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as tfm
+from repro_torch.roofline.counter import trips
 
 
 @torch.no_grad()
 def decode_loop(params, cfg, tokens, gen: int, head_fn=None):
     """Greedy prefill + ``gen`` decode steps; the output head is ``head_fn``
-    (dense when None). Returns the generated (B, gen) tokens."""
+    (dense when None). Returns the generated (B, gen) tokens. Under a
+    roofline counter one decode step runs, its counts multiplied by
+    ``gen`` (``roofline/counter.py::trips``)."""
     logits, cache = tfm.prefill(params, cfg, tokens,
                                 max_len=tokens.shape[1] + gen,
                                 head_fn=head_fn)
     out = []
-    for _ in range(gen):
+    for _ in trips(gen):
         nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
         out.append(nxt)
         logits, cache = tfm.decode_step(params, cfg, cache, nxt,

@@ -6,7 +6,10 @@ and its gradient (``optimizer.value_and_grad``) and applies
 ``optimizer.adamw_update``. With ``accum_steps > 1`` the batch splits into
 that many microbatches along its first axis; their losses and float32
 gradients are summed in order and divided by ``accum_steps``, as the
-reference's scan does.
+reference's scan does. Under a roofline counter the microbatch loop runs
+one microbatch with its counts multiplied by ``accum_steps``
+(``roofline/counter.py::trips``), as the reference's analyzer multiplies
+its scan body by the trip count.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.registry import Model
+from repro_torch.roofline.counter import trips
 from repro_torch.training import optimizer as opt
 
 
@@ -34,7 +38,7 @@ def make_train_step(model: Model, ocfg: opt.AdamWConfig,
         params = state["params"]
         if accum_steps > 1:
             loss, grads = None, None
-            for j in range(accum_steps):
+            for j in trips(accum_steps):
                 mb = {k: v.reshape((accum_steps, v.shape[0] // accum_steps)
                                    + tuple(v.shape[1:]))[j]
                       for k, v in batch.items()}

@@ -197,6 +197,9 @@ def test_import_repro_torch_leaves_jax_out():
     nothing of the reference package (fresh interpreter)."""
     mods = _port_modules()
     assert "repro_torch.kernels.ops" in mods and len(mods) > 15
+    assert {"repro_torch.roofline", "repro_torch.roofline.counter",
+            "repro_torch.roofline.report", "repro_torch.roofline.tables",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -235,6 +238,12 @@ def test_card_scripts_import_no_reference():
     root = PORT_ROOT.parent.parent
     assert _reference_imports([root / "chip_smoke.py",
                                root / "xlstm_train_probe.py"]) == []
+
+
+def test_port_tools_import_no_reference():
+    """The port's table renderer, beside the reference's in ``tools/``."""
+    tool = PORT_ROOT.parent.parent / "tools" / "torch_gen_experiments.py"
+    assert _reference_imports([tool]) == []
 
 
 def test_port_examples_import_no_reference():

@@ -49,6 +49,17 @@ EXPERIMENTS = {"bitfusion": ("error", "speedup"),
                "silago": ("error", "speedup", "energy")}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: with six test workers on eight cores a
+    multithreaded op waits on its own threads (the tier-1 run's
+    ``--dist loadfile`` puts this whole file on one worker)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(t):
     return t.detach().cpu().numpy()
 
@@ -577,19 +588,3 @@ def test_beacon_search_matches_reference(pair, monkeypatch):
     assert got.front_key() == want.front_key()
     assert got.n_evals == want.n_evals
 
-
-def test_train_small_xlstm_on_cpu():
-    """The port's own training at the search config: deterministic for a
-    seed, the loss falls, and the target it builds scores below 75 %
-    (measured 62.5 % after 40 steps; the task's floor is 50 %)."""
-    runs = []
-    for _ in range(2):
-        losses = []
-        t = TXT.train_small_xlstm(40, batch=8, seq=17, device="cpu",
-                                  log=lambda i, l: losses.append(float(l)))
-        runs.append((t, losses))
-    (a, la), (b, lb) = runs
-    assert la == lb and a.act_ranges == b.act_ranges
-    assert np.isfinite(la).all() and np.mean(la[-3:]) < np.mean(la[:3])
-    assert a.supports_retrain and a.baseline_val_error < 75.0
-    assert len(a.val_subsets) == 4 and a.val_subsets[0][0].shape == (2, 16)
