@@ -59,7 +59,11 @@ Phases, each printing JSON lines:
    and 8 pp, the launches and peak memory. Fails when no beacon was
    retrained, when ``sru_scan_pop``, ``bank_mxv_pop`` or ``sru_scan`` did
    not launch, or on a non-finite result; then the lanes and bank formats
-   are compared as in phase 3 on the first beacon's params;
+   are compared as in phase 3 on the first beacon's params. The beacon
+   run's grouped calls each shard over a 2-shard population mesh of the
+   card (``BEACON_SHARDS``; ``beacon_s`` times that 2-shard run), the
+   inference-only run and phase 5's children run unsharded, so phase 5's
+   equality also holds the sharded routing;
 5. resume: two child processes (``python3 chip_smoke.py --resume-child
    SPEC``), each restoring the trained params from phase 3's training
    checkpoint and building the target on the card, run phase 4's beacon
@@ -74,6 +78,21 @@ Phases, each printing JSON lines:
    ``load_deployment`` round-trip it with equal ``tree_digest``. Printed:
    retrains restored and run after the kill, each child's seconds, the
    resumed search's seconds beside the uninterrupted run's;
+5b. pop_mesh: the population mesh (``launch/mesh.py``,
+   ``distributed/pop_sharding.py``) on phase 3's trained target: 5, 13,
+   32 and 40 lanes and phase 3's generation 0 (its feasible lanes) on 1,
+   2 and 4 shards of the card (``shard_map``, each shard on a stream of
+   its own), f32 and packed banks, every error list bitwise the
+   unsharded one's and each shard's launches one dispatch's (10 f32 / 12 packed MxVs, 8 scans); the
+   roofline counter on generation 0 sharded and unsharded (equal FLOPs
+   but for padding lanes, launches times the shards); a 3-generation
+   silago search on 4 shards that loses 2 (``LoseDevices(at=2,
+   keep=2)``), its front the unsharded one's; two gloo ranks on cuda:0
+   (``--pop-child``, started after the timed calls) restoring phase 3's
+   training checkpoint and scoring generation 0 and the 13 lanes on
+   their process-group mesh, equal to the unsharded errors. ``xlstm_search``
+   adds the xLSTM's generation 0 on 2 shards (a ``pop_mesh`` line,
+   bitwise the unsharded errors);
 6. lm_serve: stablelm-1.6b at full width (seeded random weights drawn on
    the card), batch 4, a 128-token prompt and 32 greedy tokens through
    ``serving/lm.py`` with the int8 head on ``quant_matmul``. At every step
@@ -172,10 +191,14 @@ Phases, each printing JSON lines:
    ms, peak memory within ``PEAK_TOL`` of the reckoned peak, floor over
    measured at most ``SHARE_MAX``;
 10b. examples: ``examples/torch_quickstart.py``,
-   ``torch_mohaq_search_sru.py --fast`` and ``torch_serve_quantized.py``
-   as child processes on the card, started together; each must exit 0
-   and import neither JAX nor the reference package; their launches join
-   the counts;
+   ``torch_mohaq_search_sru.py --fast``, ``torch_serve_quantized.py`` and
+   ``torch_mohaq_serving.py`` (``--sharded-demo --shards 4``,
+   ``--serve-demo``, then the default mode on the deepseek-67b
+   ``decode_32k`` kv8 dry-run cell, which the phase writes on meta
+   tensors first; it must report that no allocation fits one card) as
+   child processes on the card, started together; each must exit 0 and
+   import neither JAX nor the reference package; their launches join the
+   counts;
 11. timing: each kernel, its plain version and the PyTorch library call
    (CUDA events, after warm-up) at the main paths' shapes and at the
    serving shapes; for the bank kernels the median and range of 5 repeats
@@ -203,9 +226,10 @@ prefills) is counted once more on the card with the roofline counter
 ``roofline`` line before ``wall_seconds`` lists them all. The counts'
 own kernel launches are taken back out of the wrappers' counts.
 
-Each path (2b, 3, 4, 5, 6, 7, 8, 9, 10, 10b) runs with the launch counts
-set to 0 just before it and read just after (phase 5: in the resumed child,
-around its search; phase 8: around each of its two searches, the cut
+Each path (2b, 3, 4, 5, 5b, 6, 7, 8, 9, 10, 10b) runs with the launch
+counts set to 0 just before it and read just after (phase 5: in the
+resumed child, around its search; 5b: around its steps in this process
+and in each gloo rank; phase 8: around each of its two searches, the cut
 uninterrupted search and the resumed child's search; 10b: in each child);
 the ``kernels`` line's ``launches`` add up those reads. A
 ``wall_seconds`` line gives each phase's seconds.
@@ -339,12 +363,29 @@ CARD_PEAK_MAX = 70e9
 PEAK_TOL = 0.25
 QMM_FAMILY_SHAPES = {"jamba": (1, 8192, 65536), "internvl2": (4, 6144, 92672)}
 TRAINED_DIR = "trained"       # the training checkpoint, under the work dir
+# the pop_mesh phase: shard counts of one card, the populations it scores
+# beside the main path's generation 0 (21 feasible lanes of the 40 on
+# silago), the search it injects a device loss into, and
+# the gloo ranks of its process-group lane (all on cuda:0); the beacon
+# search's grouped calls run on BEACON_SHARDS shards
+POP_SHARDS = (1, 2, 4)
+POP_SIZES = (5, 13, 32, 40)
+POP_LOSS_SEARCH = dict(generations=3, pop=10, initial=40, seed=0)
+POP_RANKS = 2
+BEACON_SHARDS = 2
+MENU_BITS = (2, 4, 8, 16)
 STORE_DIR = "search_store"    # the uninterrupted beacon run's SearchStore
 CHILD_TIMEOUT_S = 600
-# the examples run as children on the card, with their own arguments
-EXAMPLES = (("torch_quickstart.py", []),
-            ("torch_mohaq_search_sru.py", ["--fast"]),
-            ("torch_serve_quantized.py", []))
+# the examples run as children on the card, each child one example run
+# once per argument list; the serving example's default mode prices the
+# dry-run cell DRYRUN_SERVING, which the phase writes first
+EXAMPLES = (("torch_quickstart.py", [[]]),
+            ("torch_mohaq_search_sru.py", [["--fast"]]),
+            ("torch_serve_quantized.py", [[]]),
+            ("torch_mohaq_serving.py", [["--sharded-demo", "--shards", "4"],
+                                        ["--serve-demo"], []]))
+DRYRUN_SERVING = dict(arch="deepseek-67b", shape="decode_32k",
+                      kv_cache_int8=True, tag="kv8")
 
 
 @dataclass
@@ -355,6 +396,7 @@ class BeaconRun:
     seconds: float
     summary: dict           # run_summary of its result
     front: list             # its front's allocations
+    mesh: object            # the population mesh it ran on (describe())
 
 
 def emit(obj) -> None:
@@ -849,7 +891,7 @@ def phase_main_path(dev, work):
     bound_line("main_path", "sru_generation0",
                lambda: target.val_error_batch(allocs0),
                lanes_s["kernel"] * 1e3, lanes=len(allocs0))
-    return counts, target
+    return counts, target, allocs0
 
 
 def train_target(dev):
@@ -965,6 +1007,7 @@ def phase_beacon_search(dev, target, work):
     import torch
     from repro_torch.core import api
     from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_population_mesh
     from repro_torch.training.optimizer import tree_leaves
 
     sram = beacon_sram(target)
@@ -1003,10 +1046,16 @@ def phase_beacon_search(dev, target, work):
     target.beacon_retrainer, target.val_error_batch = (timed_retrainer,
                                                        recording)
     store = work / STORE_DIR
+    # the beacon run's grouped calls each shard over a 2-shard mesh of the
+    # card; the resume phase's children run unsharded and must equal it
+    mesh = make_population_mesh(BEACON_SHARDS, device=dev.type)
+    sess_b = api.SearchSession(target, "bitfusion", ("error", "speedup"),
+                               sram_override=sram, share_memo=False,
+                               mesh=mesh)
     try:
         t0 = time.perf_counter()
-        beacon = sess.run(beacons=True, retrain_steps=BEACON_STEPS,
-                          checkpoint_dir=str(store), **kw)
+        beacon = sess_b.run(beacons=True, retrain_steps=BEACON_STEPS,
+                            checkpoint_dir=str(store), **kw)
         torch.cuda.synchronize()
         beacon_s = time.perf_counter() - t0
     finally:
@@ -1023,6 +1072,8 @@ def phase_beacon_search(dev, target, work):
     counts = ops.launch_counts()
     base = target.baseline_val_error
     emit({"phase": "beacon_search", "platform": "bitfusion",
+          "mesh": {"inference_only": "unsharded", "beacon":
+                   mesh.describe()},
           "sram_bytes": sram, "retrain_steps": BEACON_STEPS,
           "n_retrains": bs.n_retrains, "beacons": beacons,
           "inference_only_s": inference_s, "beacon_s": beacon_s,
@@ -1064,7 +1115,8 @@ def phase_beacon_search(dev, target, work):
           "allocations": len(scored), **cmp})
     return counts, BeaconRun(store=store, sram=sram, seconds=beacon_s,
                              summary=run_summary(beacon),
-                             front=[r["alloc"] for r in rows_b])
+                             front=[r["alloc"] for r in rows_b],
+                             mesh=mesh.describe())
 
 
 def beacon_sram(target) -> int:
@@ -1302,6 +1354,7 @@ def kill_and_resume(target, run: BeaconRun, spec: dict, settings: dict,
                             "checkpoint_stats": got["checkpoint_stats"]},
           "children_wall_s": killed_s + resumed_s,
           "uninterrupted_search_s": run.seconds,
+          "mesh": {"uninterrupted": run.mesh, "children": "unsharded"},
           "equal_to_uninterrupted": same, "n_evals": got["n_evals"],
           "n_retrains": got["n_retrains"], "launches": counts})
     if not all(same.values()):
@@ -1356,6 +1409,270 @@ def phase_resume(target, work, run: BeaconRun):
     if digest != manifest["tree_digest"] or \
             keyed(loaded["allocs"]) != keyed(allocs):
         raise AssertionError("the packed front does not round-trip")
+    return counts
+
+
+def pop_child(spec: dict) -> int:
+    """One gloo rank of ``pop_mesh``'s process-group lane (``--pop-child
+    SPEC``): join the group (``spec["store"]``, a ``file://`` rendezvous),
+    restore the trained params of ``spec["cfg"]`` from the training
+    checkpoint onto ``spec["device"]`` (the parent's card, cuda:0), build
+    the target (its fingerprint must be the trained one's), and
+    score each population of ``spec["populations"]`` on the
+    process-group mesh of the ranks, twice (the first builds the banks).
+    Prints one ``RESULT {...}`` line: the errors, each rank's launches and
+    seconds."""
+    import torch
+    configure_torch()
+    import torch.distributed as dist
+    from repro_torch.core import checkpointing as ckpt
+    from repro_torch.core import sru_experiment as X
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_process_group_mesh
+    from repro_torch.models import sru
+    from repro_torch.training import checkpoint as tc
+    t0 = time.perf_counter()
+    dev = resolve_device(spec["device"])
+    cfg = sru.SRUModelConfig(**spec["cfg"])
+    dist.init_process_group("gloo", init_method="file://" + spec["store"],
+                            rank=spec["rank"], world_size=spec["world"])
+    try:
+        template = sru.init_params(torch.Generator().manual_seed(1), cfg,
+                                   device=dev)
+        params, _ = tc.restore(spec["trained"], template)
+        target = X.target_from_params(cfg, params, device=dev)
+        if ckpt.target_fingerprint(target) != spec["fingerprint"]:
+            raise AssertionError("the restored target's fingerprint is not "
+                                 "the trained one's")
+        mesh = make_process_group_mesh(device=dev)
+        setup_s = time.perf_counter() - t0
+        with open(spec["populations"]) as f:
+            pops = json.load(f)
+        ops.reset_launch_counts()
+        errors, seconds, per_dispatch = [], [], []
+        for allocs in pops:
+            allocs = [{k: tuple(v) for k, v in a.items()} for a in allocs]
+            first = target.val_error_batch(allocs, mesh=mesh,
+                                           partition="process_group")
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            again = target.val_error_batch(allocs, mesh=mesh,
+                                           partition="process_group")
+            seconds.append(time.perf_counter() - t)
+            if again != first:
+                raise AssertionError("a rescored population differs")
+            ev = target.batched_evaluator(mesh=mesh,
+                                          partition="process_group")
+            per_dispatch.append(ev._sharded.last_launches)
+            errors.append(first)
+        counts = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+           or m == "repro" or m.startswith("repro.")]
+    if bad:
+        raise AssertionError(f"imported the reference stack: {bad[:5]}")
+    print("RESULT " + json.dumps({
+        "rank": spec["rank"], "mesh": mesh.describe(), "errors": errors,
+        "generation_s": seconds, "setup_s": setup_s,
+        "launches_per_dispatch": per_dispatch, "launches": counts,
+        "wall_s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def phase_pop_mesh(dev, target, work, allocs0):
+    """The population mesh on one card (``launch/mesh.py``,
+    ``distributed/pop_sharding.py``) on the search path's trained target:
+
+    1. populations of ``POP_SIZES`` lanes and the main path's generation 0
+       on meshes of ``POP_SHARDS`` shards (``shard_map``), f32 and packed
+       banks: each
+       error list bitwise the unsharded evaluator's, each shard's launches
+       those of one dispatch (10 f32 / 12 packed MxVs and 8 scans); the
+       roofline counter's count of generation 0 on 4 shards equal to the
+       unsharded one's but for its padding lanes;
+    2. ``POP_LOSS_SEARCH`` (silago) on 4 shards with ``LoseDevices(at=2,
+       keep=2)``: the front of the unsharded search and a 4 -> 2 record;
+    3. ``POP_RANKS`` gloo ranks on cuda:0 (``--pop-child``, started
+       after the timed calls of 1 and 2), each restoring the trained
+       params from the training checkpoint: generation 0's and the
+       13-lane population's errors on their process-group mesh equal to
+       the unsharded ones.
+
+    Returns the phase's launch counts (the children's included)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import api, batched_eval
+    from repro_torch.core import checkpointing as ckpt
+    from repro_torch.core import faults
+    from repro_torch.distributed import pop_sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_population_mesh
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(22)
+    pops = {p: [{n: (int(rng.choice(MENU_BITS)), int(rng.choice(MENU_BITS)))
+                 for n in target.layer_names} for _ in range(p)]
+            for p in POP_SIZES}
+    pops["generation0"] = allocs0
+    popfile = work / "pop_populations.json"
+    popfile.write_text(json.dumps([allocs0, pops[13]]))
+    spec = {"world": POP_RANKS, "store": str(work / "pop_rendezvous"),
+            "trained": str(work / TRAINED_DIR), "populations": str(popfile),
+            "fingerprint": ckpt.target_fingerprint(target),
+            "cfg": dataclasses.asdict(target.cfg),
+            "device": str(torch.device(dev.type, 0) if dev.type == "cuda"
+                          else dev)}
+    children = []
+
+    def spawn_children():
+        for rank in range(POP_RANKS):
+            out = tempfile.TemporaryFile("w+")
+            err = tempfile.TemporaryFile("w+")
+            proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--pop-child", json.dumps({**spec, "rank": rank})],
+                stdout=out, stderr=err, text=True, cwd=str(REPO))
+            children.append((proc, out, err))
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        meshes = {n: make_population_mesh(n, device=dev.type)
+                  for n in POP_SHARDS}
+        # one dispatch's launches on a card (the CPU runs no kernel)
+        per_dispatch = {"f32": {"bank_mxv_pop": 10, "sru_scan_pop": 8},
+                        "packed": {"bank_qmm_pop": 12, "sru_scan_pop": 8}}
+        if dev.type != "cuda":
+            per_dispatch = {"f32": {}, "packed": {}}
+        want = {}
+        for fmt in ("f32", "packed"):
+            for name, allocs in pops.items():
+                p = len(allocs)
+                target.val_error_batch(allocs, bank_format=fmt)     # warm
+                want[fmt, name], un_s = timed_call(
+                    lambda: target.val_error_batch(allocs, bank_format=fmt))
+                row = {"phase": "pop_mesh", "format": fmt,
+                       "population": name, "lanes": p,
+                       "unsharded_s": un_s, "shards": {}}
+                for n, mesh in meshes.items():
+                    target.val_error_batch(allocs, bank_format=fmt,
+                                           mesh=mesh)
+                    got, s = timed_call(lambda: target.val_error_batch(
+                        allocs, bank_format=fmt, mesh=mesh))
+                    ev = target.batched_evaluator(True, fmt, mesh=mesh)
+                    launches = ev._sharded.last_launches
+                    row["shards"][n] = {
+                        "physical_devices": mesh.physical_devices,
+                        "equal": got == want[fmt, name], "generation_s": s,
+                        "launches_per_shard": launches}
+                    if got != want[fmt, name]:
+                        emit(row)
+                        raise AssertionError(
+                            f"{fmt} P={p} on {n} shards differs from the "
+                            f"unsharded errors")
+                    if launches != [per_dispatch[fmt]] * n:
+                        raise AssertionError(
+                            f"{fmt} P={p} on {n} shards: launches "
+                            f"{launches}, want {per_dispatch[fmt]} a shard")
+                emit(row)
+
+        # the roofline counter on generation 0: sharded = unsharded but for
+        # the padding lanes
+        n = max(POP_SHARDS)
+        p = len(allocs0)
+        _, un_s = timed_call(lambda: target.val_error_batch(allocs0))
+        _, sh_s = timed_call(lambda: target.val_error_batch(
+            allocs0, mesh=meshes[n]))
+        lanes = (batched_eval.bucket_size(p),
+                 pop_sharding.padded_pop(batched_eval.bucket_size(p), n))
+        un = bound_line("pop_mesh", "sru_generation0_unsharded",
+                        lambda: target.val_error_batch(allocs0),
+                        un_s * 1e3, lanes=p, padded_lanes=lanes[0])
+        sh = bound_line("pop_mesh", f"sru_generation0_{n}_shards",
+                        lambda: target.val_error_batch(allocs0,
+                                                       mesh=meshes[n]),
+                        sh_s * 1e3, lanes=p, padded_lanes=lanes[1],
+                        shards=n, physical_devices=1)
+        expect = un["flops"] / lanes[0] * lanes[1]
+        if sh["flops"] != expect or sh["launches"] != {
+                k: v * n for k, v in un["launches"].items()}:
+            raise AssertionError(f"the sharded count {sh['flops']} / "
+                                 f"{sh['launches']} is not the unsharded "
+                                 f"{un['flops']} / {un['launches']} for "
+                                 f"{lanes[1]} lanes on {n} shards")
+
+        # a device loss: 4 shards -> 2 in generation 2, the unsharded front
+        lossy = dataclasses.replace(target, shared_error_memo={})
+        ev = lossy.batched_evaluator(mesh=meshes[4])
+        ev.faults = faults.FaultInjector([faults.LoseDevices(at=2, keep=2)])
+        t0 = time.perf_counter()
+        res = api.SearchSession(lossy, "silago", mesh=meshes[4],
+                                share_memo=False).run(**POP_LOSS_SEARCH)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        # the gloo ranks start once every timed call above is done (they
+        # share the card and the host); the untimed unsharded search runs
+        # while they set up
+        spawn_children()
+        base = api.SearchSession(target, "silago",
+                                 share_memo=False).run(**POP_LOSS_SEARCH)
+        torch.cuda.synchronize()
+        loss = {"phase": "pop_mesh", "device_loss": {
+            **POP_LOSS_SEARCH, "fault_log": ev.fault_log,
+            "mesh_after": ev.mesh.describe(), "search_s": search_s,
+            "n_evals": res.n_evals,
+            "front_equal": res.front_key() == base.front_key()}}
+        emit(loss)
+        if not loss["device_loss"]["front_equal"] or ev.fault_log != [
+                {"event": "device_loss", "from_shards": 4, "to_shards": 2}]:
+            raise AssertionError(f"the search that lost 2 of 4 shards: "
+                                 f"{loss}")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+
+        # the process-group lane
+        results = []
+        for rank, (proc, out, err) in enumerate(children):
+            rc = proc.wait(timeout=CHILD_TIMEOUT_S)
+            stdout, stderr = _read_back(out), _read_back(err)
+            lines = [ln for ln in stdout.splitlines()
+                     if ln.startswith("RESULT ")]
+            if rc != 0 or not lines:
+                raise AssertionError(f"pop child {rank} failed (rc {rc}):\n"
+                                     f"{stderr[-3000:]}")
+            results.append(json.loads(lines[-1][len("RESULT "):]))
+    finally:
+        for proc, out, err in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+    expect = [want["f32", "generation0"], want["f32", 13]]
+    same = [r["errors"] == expect for r in results]
+    emit({"phase": "pop_mesh", "process_group": {
+        "ranks": POP_RANKS, "mesh": results[0]["mesh"],
+        "equal_to_unsharded": same,
+        "children": [{k: r[k] for k in ("rank", "setup_s", "generation_s",
+                                        "launches_per_dispatch", "wall_s")}
+                     for r in results]},
+        "wall_s": time.perf_counter() - t_phase})
+    if not all(same):
+        raise AssertionError(f"the gloo ranks' errors differ from the "
+                             f"unsharded ones: {same}")
+    for r in results:
+        counts = {k: counts[k] + r["launches"].get(k, 0) for k in counts}
     return counts
 
 
@@ -2086,8 +2403,10 @@ def phase_xlstm_search(dev):
         t = time.perf_counter()
         out = evaluate(allocs, params, **kw)
         calls.append((list(allocs), time.perf_counter() - t))
+        errors.append(out)
         return out
 
+    errors = []
     target.val_error_batch = recording
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -2121,6 +2440,7 @@ def phase_xlstm_search(dev):
     allocs0 = calls[0][0]
     emit({"phase": "xlstm_search", "kernel_vs_plain": compare_xlstm_lanes(
         target, allocs0), "allocations": len(allocs0)})
+    xlstm_two_shards(target, allocs0, errors[0])
 
     retrain_s, retrainer = [], target.beacon_retrainer
 
@@ -2178,6 +2498,63 @@ def phase_xlstm_search(dev):
     resume_counts = xlstm_resume(dev, cut)
     return {k: counts[k] + beacon_counts[k] + resume_counts[k]
             for k in counts}
+
+
+def gate_product_bits(dev, lanes: int, rows: int, d: int, h: int) -> dict:
+    """The mLSTM gate logits' product at the search's shapes, ``lanes``
+    lanes of (``rows``, ``d``) by (``d``, ``h``) on seeded inputs, against
+    the same product over each half of the lanes: the lanes folded into
+    the rows of one ``matmul`` (how it was written before PR 22; reported)
+    and ``models/xlstm.py::_gate_product`` (batched over the lanes; must
+    be bitwise)."""
+    import torch
+    from repro_torch.models import xlstm
+    g = torch.Generator().manual_seed(22)
+    xf = torch.randn((lanes, 1, rows, d), generator=g).to(dev)
+    w = (torch.randn((d, h), generator=g) / d ** 0.5).to(dev)
+    half = lanes // 2
+    out = {}
+    for name, fn in (("folded_matmul", lambda x: torch.matmul(
+            x.reshape(-1, d), w).reshape(x.shape[:-1] + (h,))),
+                     ("gate_product", lambda x: xlstm._gate_product(x, w))):
+        whole = fn(xf)
+        parts = torch.cat([fn(xf[:half]), fn(xf[half:])])
+        out[name] = {"bitwise": bool(torch.equal(whole, parts)),
+                     "max_abs_diff": float((whole - parts).abs().max())}
+    if not out["gate_product"]["bitwise"]:
+        raise AssertionError(f"_gate_product's bits move with the lanes "
+                             f"per call: {out}")
+    return {"lanes": [lanes, [half, lanes - half]], "shape": [rows, d, h],
+            **out}
+
+
+def xlstm_two_shards(target, allocs0, want):
+    """``pop_mesh``'s xLSTM step: generation 0 on a 2-shard mesh of the
+    card (the banks are the unsharded evaluator's), bitwise the unsharded
+    errors ``want``; and the gate product's bits at 40 lanes against 2 x
+    20 (``gate_product_bits``)."""
+    import torch
+    from repro_torch.launch.mesh import make_population_mesh
+    dev = target.val_subsets[0][0].device
+    mesh = make_population_mesh(2, device=dev.type)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = target.val_error_batch(allocs0, mesh=mesh)
+    torch.cuda.synchronize()
+    ev = target.batched_evaluator(mesh=mesh)
+    row = {"phase": "pop_mesh", "xlstm": {
+        "lanes": len(allocs0), "mesh": mesh.describe(),
+        "generation_s": time.perf_counter() - t0, "equal": got == want,
+        "lanes_differ": [i for i, (a, b) in enumerate(zip(got, want))
+                         if a != b],
+        "launches_per_shard": ev._sharded.last_launches,
+        "gate_product": gate_product_bits(
+            dev, len(allocs0), target.val_subsets[0][0].numel(),
+            target.cfg.d_model, target.cfg.n_heads)}}
+    emit(row)
+    if got != want:
+        raise AssertionError(f"the xLSTM's generation 0 on 2 shards differs "
+                             f"from the unsharded errors: {row}")
 
 
 def xlstm_cut_config(blocks: int):
@@ -2242,7 +2619,8 @@ def xlstm_resume(dev, params) -> dict:
         counts = ops.launch_counts()
         run = BeaconRun(store=store, sram=sram, seconds=search_s,
                         summary=run_summary(res),
-                        front=[r["alloc"] for r in res.table()])
+                        front=[r["alloc"] for r in res.table()],
+                        mesh="unsharded")
         emit({"phase": "xlstm_resume", "cut": {
             "config": cfg.name, "blocks": cfg.n_layers, "of_blocks":
                 XLSTM_BLOCKS, "d_model": cfg.d_model,
@@ -3566,8 +3944,9 @@ def phase_contracts(dev):
 _EXAMPLE_RUNNER = """
 import json, runpy, sys
 path = sys.argv[1]
-sys.argv = sys.argv[1:]
-runpy.run_path(path, run_name="__main__")
+for args in json.loads(sys.argv[2]):
+    sys.argv = [path] + args
+    runpy.run_path(path, run_name="__main__")
 from repro_torch.kernels import ops
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -3583,12 +3962,14 @@ def _read_back(f) -> str:
 
 def phase_examples(dev):
     """The port's user examples (``EXAMPLES``) as child processes on the
-    card, each with its own arguments, all started together (they are
-    host-bound): fails on a non-zero exit or when a child imported JAX or
-    the reference package. Emits each child's seconds, launches and last
-    output lines, and the phase's wall seconds. Returns the children's
-    launch counts."""
+    card, each run once per argument list, all started together (they are
+    host-bound); the dry-run cell ``DRYRUN_SERVING`` is written on meta
+    tensors (``launch/dryrun.py``) before the serving example starts.
+    Fails on a non-zero exit or when a child imported JAX or the reference
+    package. Emits each child's seconds, launches and last output lines,
+    and the phase's wall seconds. Returns the children's launch counts."""
     from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
     counts = {k: 0 for k in ops.launch_counts()}
     # host-bound children share the host's cores: two threads each
     env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "2"}
@@ -3596,11 +3977,24 @@ def phase_examples(dev):
     children = []
     try:
         for name, args in EXAMPLES:
+            if name == "torch_mohaq_serving.py":
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = dryrun.main([
+                        "--arch", DRYRUN_SERVING["arch"], "--shape",
+                        DRYRUN_SERVING["shape"], "--kv-cache-int8", "--tag",
+                        DRYRUN_SERVING["tag"], "--out",
+                        str(REPO / "experiments" / "torch_dryrun")])
+                emit({"phase": "examples", "dryrun_cell": DRYRUN_SERVING,
+                      "rc": rc, "seconds": time.perf_counter() - t})
+                if rc != 0:
+                    raise AssertionError(f"the dry-run cell {DRYRUN_SERVING}"
+                                         f" failed (rc {rc})")
             out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
             proc = subprocess.Popen(
                 [sys.executable, "-c", _EXAMPLE_RUNNER,
-                 str(REPO / "examples" / name), *args], stdout=out,
-                stderr=err, text=True, cwd=str(REPO), env=env)
+                 str(REPO / "examples" / name), json.dumps(args)],
+                stdout=out, stderr=err, text=True, cwd=str(REPO), env=env)
             children.append((name, args, proc, out, err))
         results = []
         for name, args, proc, out, err in children:
@@ -3629,6 +4023,10 @@ def phase_examples(dev):
         if got["imported_reference"]:
             raise AssertionError(f"example {name} imported "
                                  f"{got['imported_reference'][:5]}")
+        if name == "torch_mohaq_serving.py" and \
+                "no allocation fits one card" not in stdout:
+            raise AssertionError("the serving example's default mode did not "
+                                 "report that no allocation fits one card")
         counts = {k: counts[k] + got["launches"].get(k, 0) for k in counts}
     emit({"phase": "examples", "wall_s": time.perf_counter() - t0,
           "launches": counts})
@@ -3738,11 +4136,14 @@ def main() -> int:
     contract_counts = timed("contracts", phase_contracts, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
-        counts, target = timed("main_path", phase_main_path, dev, work)
+        counts, target, allocs0 = timed("main_path", phase_main_path, dev,
+                                        work)
         beacon_counts, run = timed("beacon_search", phase_beacon_search,
                                    dev, target, work)
         paths = [contract_counts, beacon_counts,
-                 timed("resume", phase_resume, target, work, run)]
+                 timed("resume", phase_resume, target, work, run),
+                 timed("pop_mesh", phase_pop_mesh, dev, target, work,
+                       allocs0)]
     paths += [timed(name, fn, *args) for name, fn, args in (
         ("lm_serve", phase_lm_serve, (dev,)),
         ("front_serve", phase_front_serve, (dev, target)),
@@ -3780,4 +4181,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-child"]:
         sys.exit(resume_child(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--pop-child"]:
+        sys.exit(pop_child(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -7,11 +7,9 @@ hardware platforms resolve from names via ``core.hardware.get_platform``.
 ``repro_torch.core.sru_experiment.TrainedSRU`` and
 ``repro_torch.core.xlstm_target.XLSTMTarget`` implement it.
 
-Differences from the reference:
-
-- no device mesh: the population axis runs on one device, so
-  ``mesh``/``partition`` are gone from every signature;
-- the deprecated ``sru_experiment`` shims are not carried over.
+Differences from the reference: the deprecated ``sru_experiment`` shims
+are not carried over, and ``partition`` takes ``"process_group"`` where
+the reference takes ``"gspmd"`` (``distributed/pop_sharding.py``).
 
 The SearchTarget contract
 -------------------------
@@ -32,8 +30,9 @@ Hardware-objective inputs (paper Eqs. 3-5)
 Error evaluation
   ``baseline_val_error``                      full-precision reference
   ``val_error(alloc=None, params=None)``      scalar max-subset error %
-  ``val_error_batch(allocs, params=None)``    population-batched errors,
-                                              equal to the scalar path
+  ``val_error_batch(allocs, params=None, *, mesh=None, partition=...)``
+                        population-batched errors, equal to the scalar
+                        path; ``mesh`` shards the population axis
   ``shared_error_memo``  dict shared by every base-params search built from
                         this target
 
@@ -119,11 +118,14 @@ def build_problem_from_target(
         target: SearchTarget, platform: Union[str, HardwareModel],
         objectives: Sequence[str], *,
         sram_override: Optional[int] = None, batched: bool = True,
+        mesh=None, partition: str = "shard_map",
         share_memo: bool = True) -> MOHAQProblem:
     """Construct a ``MOHAQProblem`` from any ``SearchTarget``.
-    ``share_memo`` keeps the target's cross-search base-params error memo
-    attached (platform sweeps score each allocation once — beacon searches
-    re-point it, see ``BeaconSearch.attach``)."""
+    ``mesh`` (a 1-D "pop" ``launch.mesh.PopulationMesh``) shards every
+    population-level error evaluation across devices; ``share_memo`` keeps
+    the target's cross-search base-params error memo attached (platform
+    sweeps score each allocation once — beacon searches re-point it, see
+    ``BeaconSearch.attach``)."""
     hw = _resolve(platform)
     if sram_override is not None:
         hw = dataclasses.replace(hw, sram_bytes=sram_override)
@@ -132,7 +134,7 @@ def build_problem_from_target(
         return target.val_error(alloc)
 
     def batch_error_fn(allocs):
-        return target.val_error_batch(allocs)
+        return target.val_error_batch(allocs, mesh=mesh, partition=partition)
 
     return MOHAQProblem(
         layer_names=list(target.layer_names),
@@ -192,15 +194,20 @@ class SearchSession:
     objectives).run(...)``.
 
     ``platform`` is a registry name (``get_platform``) or a
-    ``HardwareModel``; ``batched=False`` forces the per-candidate path
-    (identical fronts). Each ``run`` builds a fresh problem but shares the
-    target's cross-search error memo, so multi-platform sweeps over one
-    target score each allocation once."""
+    ``HardwareModel``; ``mesh``/``partition`` shard every population
+    evaluation (scalar paths unchanged); ``batched=False`` forces the
+    per-candidate path (identical fronts). Each ``run`` builds a fresh
+    problem but shares the target's cross-search error memo, so
+    multi-platform sweeps over one target score each allocation once. The
+    checkpoint key leaves the mesh out: a search saved on 4 shards resumes
+    on 2."""
     target: Any
     platform: Union[str, HardwareModel]
     objectives: Sequence[str] = ("error", "speedup", "energy")
     sram_override: Optional[int] = None
     batched: bool = True
+    mesh: Any = None
+    partition: str = "shard_map"
     share_memo: bool = True
 
     def __post_init__(self):
@@ -210,6 +217,7 @@ class SearchSession:
         return build_problem_from_target(
             self.target, self.platform, self.objectives,
             sram_override=self.sram_override, batched=self.batched,
+            mesh=self.mesh, partition=self.partition,
             share_memo=self.share_memo)
 
     def run(self, generations: int = 15, pop: int = 10, initial: int = 24,
@@ -265,7 +273,9 @@ class SearchSession:
                     "with beacons=False")
             bs = BeaconSearch.from_target(
                 prob, self.target, retrain_steps=retrain_steps,
-                batched=self.batched, distance_threshold=distance_threshold,
+                batched=self.batched, mesh=self.mesh,
+                partition=self.partition,
+                distance_threshold=distance_threshold,
                 skip_retrains=state.n_retrains if state is not None else 0)
             prob = bs.attach()
         resume_state = None

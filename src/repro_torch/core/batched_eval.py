@@ -1,7 +1,7 @@
 """Batched candidate evaluation for the MOHAQ search (the GA's hot loop).
 
-Port of the reference package's ``core/batched_eval.py``, on one device (no
-mesh). ``PopulationEvaluator`` owns the pipeline against any
+Port of the reference package's ``core/batched_eval.py``.
+``PopulationEvaluator`` owns the pipeline against any
 ``SearchTarget``'s population forward: ``BatchedSRUEvaluator`` binds it to
 ``models.sru.forward_population``, and the xLSTM target
 (``core/xlstm_target.py``) to its own ``forward_population``.
@@ -19,9 +19,16 @@ mesh). ``PopulationEvaluator`` owns the pipeline against any
   its identity, optionally for a bounded number of sets
   (``extend_banks`` specializes fresh f32 banks to the folded fold: the
   SRU input-layer u-bank).
+- Device mesh (``mesh=``, ``launch/mesh.py``): the population axis
+  partitions over a 1-D "pop" mesh (``distributed/pop_sharding.py``).
+  Populations pad to a multiple of the shard count on top of the buckets;
+  each shard runs the unchanged dispatch on its lanes, so a lane's count
+  is the same bits however many lanes share its shard, and beacon groups
+  shard independently (each grouped ``errors`` call is a population).
 - Fault hooks (``faults``) inject dispatch failures and poisoned lanes;
-  transient failures retry with backoff. A device loss has no mesh to
-  shrink here and raises.
+  transient failures retry with backoff. A device loss rebinds the
+  dispatch to the surviving shards and re-runs the generation; without a
+  mesh it raises.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 
 from repro_torch.core import faults as fault_policies
 from repro_torch.core import quantization as Q
+from repro_torch.distributed import pop_sharding
 
 Alloc = Dict[str, Tuple[int, int]]
 
@@ -75,19 +83,30 @@ class PopulationEvaluator:
     (L, |menu|, 3) weight/activation triple tables, from which the banked
     pipeline assembles qp stacks by numpy indexing. ``bank_cache_size``
     bounds the parameter sets whose banks stay cached (the least recently
-    used go first); None keeps every set.
+    used go first); None keeps every set. ``bank_cache``: the dict that
+    holds them, keyed by parameter-set identity; a target passes one dict
+    to every evaluator of the same bank settings, so that an evaluator on
+    a mesh reuses the unsharded one's banks (their copies on other shard
+    devices are the mesh call's, ``pop_sharding.ShardedCall``).
+
+    ``mesh`` (a ``launch.mesh.PopulationMesh``) shards the population over
+    its "pop" axis: ``partition="shard_map"`` (one process drives every
+    shard) or ``"process_group"`` (one rank per shard). Banks are built on
+    the evaluator's device and placed once per shard device.
     """
 
     def __init__(self, layer_names, val_subsets,
                  make_qp: Callable[[Alloc], dict],
                  forward_pop: Callable,
+                 mesh=None, partition: str = "shard_map",
                  make_banks: Optional[Callable] = None,
                  use_banks: Optional[bool] = None,
                  qp_tables=None,
                  extend_banks: Optional[Callable] = None,
                  bank_format: str = "f32",
                  make_packed_banks: Optional[Callable] = None,
-                 bank_cache_size: Optional[int] = None):
+                 bank_cache_size: Optional[int] = None,
+                 bank_cache: Optional[dict] = None):
         self.layer_names = list(layer_names)
         self.val_subsets = val_subsets
         self.make_qp = make_qp
@@ -117,8 +136,9 @@ class PopulationEvaluator:
         self._make_packed_banks = make_packed_banks
         self._extend_banks = extend_banks
         # banks keyed by parameter-set identity; the params ref is kept so
-        # a collected object's id can never alias a live cache entry
-        self._banks: Dict[int, tuple] = {}
+        # a collected object's id can never alias a live entry
+        self._banks: Dict[int, tuple] = ({} if bank_cache is None
+                                         else bank_cache)
         self._bank_cache_size = bank_cache_size
         self.device = val_subsets[0][0].device
         shapes = {tuple(f.shape) for f, _ in val_subsets}
@@ -128,11 +148,29 @@ class PopulationEvaluator:
             self._labels_all = torch.cat([l for _, l in val_subsets], dim=0)
             self._n_subsets = len(val_subsets)
             self._subset_frames = int(val_subsets[0][1].numel())
-        # graceful-degradation knobs (see repro_torch.core.faults)
+        # graceful-degradation knobs (see repro_torch.core.faults): a
+        # device loss rebinds the dispatch to the surviving mesh and re-runs
+        # the generation (``fault_log`` records it and every retry)
         self.faults = None
         self.max_retries = 3
         self.retry_backoff_s = 0.005
         self.fault_log: List[dict] = []
+        self._partition = partition
+        self._bind_mesh(mesh)
+
+    def _bind_mesh(self, mesh) -> None:
+        """(Re)bind the per-generation dispatch to ``mesh``: at
+        construction and after a device loss shrinks it. The sharded call
+        reaches ``_batch_err`` through the instance, so a wrapper set on
+        it (the contract checker's dispatch count) sees every shard."""
+        self.mesh = mesh
+        self._n_shards = pop_sharding.pop_axis_size(mesh)
+        if mesh is None:
+            self._sharded = None
+        else:
+            self._sharded = pop_sharding.shard_population(
+                lambda *args: self._batch_err(*args), mesh, n_replicated=4,
+                mode=self._partition)
 
     @torch.no_grad()
     def _batch_err(self, params, banks, feats, labels, qp_stack):
@@ -180,17 +218,23 @@ class PopulationEvaluator:
         else:
             stack = stack_qps([self.make_qp(a) for a in allocs],
                               self.layer_names)
-        pad = bucket_size(len(allocs)) - len(allocs)
+        target = pop_sharding.padded_pop(bucket_size(len(allocs)),
+                                         self._n_shards)
+        pad = target - len(allocs)
         if pad:
             stack = np.concatenate([stack, np.repeat(stack[-1:], pad, 0)])
         return torch.from_numpy(
             np.ascontiguousarray(stack, np.float32)).to(self.device)
 
     def _dispatch(self, params, banks, feats, labels, stack):
-        """The single dispatch, with the fault-injection hook in front."""
+        """The single dispatch (sharded over the mesh when there is one),
+        with the fault-injection hook in front; the counts come back as a
+        host array."""
         if self.faults is not None:
             self.faults.on_dispatch(self)
-        return self._batch_err(params, banks, feats, labels, stack)
+        call = self._batch_err if self._sharded is None else self._sharded
+        return pop_sharding.gather_counts(
+            call(params, banks, feats, labels, stack))
 
     def _errors_once(self, allocs: Sequence[Alloc], params) -> np.ndarray:
         """One attempt at scoring a generation; returns the (P,) float
@@ -200,14 +244,13 @@ class PopulationEvaluator:
         p = len(allocs)
         if self._folded:
             wrong = self._dispatch(params, banks, self._feats_all,
-                                   self._labels_all, stack).cpu().numpy()
+                                   self._labels_all, stack)
             errs = 100.0 * wrong[:p].astype(np.int64) / self._subset_frames
             errs = np.max(errs, axis=1)
         else:
             per_subset = []
             for feats, labels in self.val_subsets:
-                wrong = self._dispatch(params, banks, feats, labels,
-                                       stack).cpu().numpy()
+                wrong = self._dispatch(params, banks, feats, labels, stack)
                 per_subset.append(100.0 * wrong[:p].astype(np.int64)
                                   / int(labels.numel()))
             errs = np.max(np.stack(per_subset), axis=0)
@@ -215,13 +258,37 @@ class PopulationEvaluator:
             errs = self.faults.on_result(self, errs)
         return errs
 
+    def _survive_device_loss(self, keep: int) -> None:
+        """Degrade to the first ``keep`` shards of the mesh and rebind the
+        dispatch. Each loss must strictly shrink the mesh. On a
+        process-group mesh every rank makes the survivors' group; a rank
+        outside it leaves (``pop_sharding.LeftMesh``)."""
+        if self.mesh is None:
+            raise RuntimeError(
+                "device loss injected on an unsharded evaluator "
+                "(no mesh to shrink)")
+        if not 0 < keep < self._n_shards:
+            raise RuntimeError(
+                f"device loss to {keep} shards does not shrink the "
+                f"current {self._n_shards}-shard mesh")
+        self.fault_log.append({"event": "device_loss",
+                               "from_shards": self._n_shards,
+                               "to_shards": keep})
+        self._bind_mesh(pop_sharding.shrink_mesh(self.mesh, keep))
+        if self.mesh.process_group and self.mesh.group is None:
+            raise pop_sharding.LeftMesh(
+                f"rank {self.mesh.rank} left the population mesh "
+                f"(survivors {self.mesh.ranks})")
+
     def errors(self, allocs: Sequence[Alloc], params) -> List[float]:
         """Max-over-subsets error % for each allocation (order-preserving).
 
         Transient dispatch failures (``faults.TRANSIENT_DISPATCH_ERRORS``)
         are retried up to ``max_retries`` times with exponential backoff; a
-        retry re-runs the identical forward. A ``DeviceLossError`` cannot
-        be survived on one device and raises."""
+        retry re-runs the identical forward. A ``DeviceLossError``
+        re-pads and re-dispatches the generation on the surviving shards
+        (lanes are independent, so every count keeps its bits); an
+        unsharded evaluator raises."""
         if not allocs:
             return []
         attempt = 0
@@ -229,9 +296,7 @@ class PopulationEvaluator:
             try:
                 return self._errors_once(allocs, params).tolist()
             except fault_policies.DeviceLossError as loss:
-                raise RuntimeError(
-                    "device loss injected on a single-device evaluator "
-                    "(no mesh to shrink)") from loss
+                self._survive_device_loss(loss.keep)
             except fault_policies.TRANSIENT_DISPATCH_ERRORS as exc:
                 attempt += 1
                 if attempt > self.max_retries:
@@ -254,11 +319,13 @@ class BatchedSRUEvaluator(PopulationEvaluator):
 
     def __init__(self, cfg, val_subsets, make_qp: Callable[[Alloc], dict],
                  use_kernel: Optional[bool] = None,
+                 mesh=None, partition: str = "shard_map",
                  make_banks: Optional[Callable] = None,
                  use_banks: Optional[bool] = None,
                  qp_tables=None,
                  bank_format: str = "f32",
-                 make_packed_banks: Optional[Callable] = None):
+                 make_packed_banks: Optional[Callable] = None,
+                 bank_cache: Optional[dict] = None):
         from repro_torch.models import sru
 
         self.cfg = cfg
@@ -278,7 +345,9 @@ class BatchedSRUEvaluator(PopulationEvaluator):
                                            use_kernel=use_kernel)
 
         super().__init__(list(cfg.layer_names()), val_subsets, make_qp,
-                         forward_pop, make_banks=make_banks,
+                         forward_pop, mesh=mesh, partition=partition,
+                         make_banks=make_banks,
                          use_banks=use_banks, qp_tables=qp_tables,
                          extend_banks=extend, bank_format=bank_format,
-                         make_packed_banks=make_packed_banks)
+                         make_packed_banks=make_packed_banks,
+                         bank_cache=bank_cache)

@@ -61,6 +61,7 @@ class BeaconSearch:
     @classmethod
     def from_target(cls, problem: MOHAQProblem, target, *,
                     retrain_steps: int = 60, batched: bool = True,
+                    mesh=None, partition: str = "shard_map",
                     distance_threshold: float = 6.0,
                     skip_retrains: int = 0) -> "BeaconSearch":
         """Build the beacon wrapper from any ``SearchTarget`` (see
@@ -68,7 +69,9 @@ class BeaconSearch:
         ``target.beacon_retrainer(steps)`` (one data stream per search, so
         successive retrains consume successive batches — bit-identical to
         the historical experiment wiring) and both error evaluators are
-        the target's parameter-explicit paths.
+        the target's parameter-explicit paths. Beacon groups shard
+        independently when a ``mesh`` is given: every grouped call is
+        itself a population partitioned over the mesh.
 
         ``skip_retrains`` fast-forwards the retraining data stream past
         the first N retrains (checkpoint resume: the restored beacons
@@ -79,7 +82,8 @@ class BeaconSearch:
             return target.val_error(alloc, params=params)
 
         def batch_error_with_params(params, allocs):
-            return target.val_error_batch(allocs, params=params)
+            return target.val_error_batch(allocs, params=params, mesh=mesh,
+                                          partition=partition)
 
         if skip_retrains:
             retrain_fn = target.beacon_retrainer(

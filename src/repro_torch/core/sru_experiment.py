@@ -57,6 +57,7 @@ class TrainedSRU:
 
     def __post_init__(self):
         self._batched_eval = {}
+        self._bank_caches = {}         # shared by evaluators of one lane
         self._qp_tables = None
 
     # ---- SearchTarget: search-space / hardware-objective surface ----
@@ -154,28 +155,42 @@ class TrainedSRU:
 
     def batched_evaluator(self, use_banks: bool = True,
                           bank_format: str = "f32",
-                          use_kernel: Optional[bool] = None
+                          use_kernel: Optional[bool] = None, mesh=None,
+                          partition: str = "shard_map"
                           ) -> batched_eval.BatchedSRUEvaluator:
         """Lazily built population evaluator, one per (banks, format,
-        lane). ``use_kernel`` defaults to the kernel lane on a card."""
-        key = (use_banks, bank_format, use_kernel)
+        lane, mesh, partition). ``use_kernel`` defaults to the kernel lane
+        on a card; ``mesh`` shards the population over its "pop" axis
+        (``partition``: see ``distributed/pop_sharding.py``). Meshes
+        compare by their devices and axis, so equal meshes built afresh
+        share one evaluator."""
+        key = (use_banks, bank_format, use_kernel, mesh,
+               partition if mesh is not None else "")
         if key not in self._batched_eval:
+            lane = (use_kernel if use_kernel is not None
+                    else self.val_subsets[0][0].device.type == "cuda")
+            banks = self._bank_caches.setdefault(
+                (use_banks, bank_format, lane), {})
             self._batched_eval[key] = batched_eval.BatchedSRUEvaluator(
                 self.cfg, self.val_subsets, self.qp_for,
-                use_kernel=use_kernel, make_banks=self.make_banks,
+                use_kernel=use_kernel, mesh=mesh, partition=partition,
+                make_banks=self.make_banks,
                 use_banks=use_banks, qp_tables=self.qp_menu_tables(),
                 bank_format=bank_format,
-                make_packed_banks=self.make_packed_banks)
+                make_packed_banks=self.make_packed_banks, bank_cache=banks)
         return self._batched_eval[key]
 
     def val_error_batch(self, allocs, params=None, *,
                         use_banks: bool = True, bank_format: str = "f32",
-                        use_kernel: Optional[bool] = None) -> List[float]:
+                        use_kernel: Optional[bool] = None, mesh=None,
+                        partition: str = "shard_map") -> List[float]:
         """Max error over the validation subsets for every allocation in
         one forward; equal to ``val_error`` per allocation up to frames
-        whose argmax the lanes' different summation orders flip."""
+        whose argmax the lanes' different summation orders flip. ``mesh``
+        partitions the candidates over devices (the same counts)."""
         params = self.params if params is None else params
-        return self.batched_evaluator(use_banks, bank_format, use_kernel
+        return self.batched_evaluator(use_banks, bank_format, use_kernel,
+                                      mesh=mesh, partition=partition
                                       ).errors(allocs, params)
 
     def _count(self, params, feats, labels, alloc):

@@ -280,6 +280,7 @@ class XLSTMTarget:
     def __post_init__(self):
         self.shared_error_memo: Dict[tuple, float] = {}
         self._evaluators: Dict[tuple, batched_eval.PopulationEvaluator] = {}
+        self._bank_cache: Dict[int, tuple] = {}     # shared by evaluators
         self._qp_tables = None
 
     # ---- search-space description ----
@@ -396,11 +397,14 @@ class XLSTMTarget:
     # ---- error evaluation ----
 
     def batched_evaluator(self, use_banks: bool = True,
-                          use_kernel: Optional[bool] = None
+                          use_kernel: Optional[bool] = None, mesh=None,
+                          partition: str = "shard_map"
                           ) -> batched_eval.PopulationEvaluator:
-        """Lazily built population evaluator, one per (banks, lane).
-        ``use_kernel`` defaults to the kernel lane on a card."""
-        key = (use_banks, use_kernel)
+        """Lazily built population evaluator, one per (banks, lane, mesh,
+        partition). ``use_kernel`` defaults to the kernel lane on a card;
+        ``mesh`` shards the population (``distributed/pop_sharding.py``)."""
+        key = (use_banks, use_kernel, mesh,
+               partition if mesh is not None else "")
         if key not in self._evaluators:
             cfg = self.cfg
 
@@ -410,17 +414,20 @@ class XLSTMTarget:
 
             self._evaluators[key] = batched_eval.PopulationEvaluator(
                 self.layer_names, self.val_subsets, self.qp_for,
-                forward_pop, make_banks=self.make_banks, use_banks=use_banks,
+                forward_pop, mesh=mesh, partition=partition,
+                make_banks=self.make_banks, use_banks=use_banks,
                 qp_tables=self.qp_menu_tables(),
-                bank_cache_size=BANK_CACHE_SIZE)
+                bank_cache_size=BANK_CACHE_SIZE, bank_cache=self._bank_cache)
         return self._evaluators[key]
 
     def val_error_batch(self, allocs, params=None, *, use_banks: bool = True,
-                        use_kernel: Optional[bool] = None) -> List[float]:
+                        use_kernel: Optional[bool] = None, mesh=None,
+                        partition: str = "shard_map") -> List[float]:
         """Max-over-subsets next-token error % for every allocation in one
-        dispatch (buckets, folding, banks)."""
+        dispatch (buckets, folding, banks); ``mesh`` shards it."""
         params = self.params if params is None else params
-        return self.batched_evaluator(use_banks, use_kernel
+        return self.batched_evaluator(use_banks, use_kernel, mesh=mesh,
+                                      partition=partition
                                       ).errors(allocs, params)
 
     @torch.no_grad()

@@ -20,9 +20,10 @@ trees took to build, ``compile_s`` is 0, ``analyze_s`` the count's.
 ``--mesh single`` is one H100 here (the reference's ``single`` is a 16 x 16
 TPU pod, its ``launch/mesh.py:15``). The reference's sharding and
 cross-shard levers, ``--mesh multi|both``, ``--rules`` and
-``--bf16-partials``, exit non-zero: the port has no mesh until ROADMAP
-item 9. A cell that does not fit one card is a finding, not a failure: its
-status stays ``ok`` with ``fits`` false. ``--run-on-card`` also runs one
+``--bf16-partials``, exit non-zero: the port's one mesh is the search's
+population axis, and a (data, model) mesh waits for ROADMAP item 9b. A
+cell that does not fit one card is a finding, not a failure: its status
+stays ``ok`` with ``fits`` false. ``--run-on-card`` also runs one
 real step of each cell that fits on the card, at full size on seeded
 weights: the median of 5 timed steps after one warm-up,
 ``torch.cuda.max_memory_allocated`` beside the reckoned peak, and
@@ -55,7 +56,8 @@ from repro_torch.roofline.report import H100_HBM_CAPACITY_BYTES, \
 from repro_torch.training import optimizer as opt
 from repro_torch.training import train_step as ts
 
-WAITS = "waits for ROADMAP item 9 (the port has no mesh yet)"
+WAITS = ("waits for ROADMAP item 9b (the port has no (data, model) mesh "
+         "yet)")
 # Activation budget of _auto_accum: the remat-saved layer inputs of one
 # microbatch. The reference allows 6 GiB of a 16 GiB TPU chip; the same
 # share of an 80 GB card is 30 GiB, which leaves the rest for the

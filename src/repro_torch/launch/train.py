@@ -4,7 +4,7 @@
         --reduced --steps 200 --batch 8 --seq 64 --ckpt-dir ckpt --device cpu
 
 Port of the reference package's ``launch/train.py`` for one device (no
-mesh; ``--model-parallel`` waits for ROADMAP.md queue 1, item 9).
+mesh; ``--model-parallel`` waits for ROADMAP.md queue 1, item 9b).
 Deterministic data (``synthetic.lm_batches`` from the start step), resume
 from the newest checkpoint in ``--ckpt-dir``, async saves every
 ``--ckpt-every`` steps and at the end, gradient accumulation over

@@ -171,8 +171,8 @@ def _flash_attention(qg, k, v, q_offset, kv_valid, chunk_q, chunk_k,
     there), ``p`` rounded to v's dtype before the PV product (f32 sums),
     padded keys masked by ``valid``; the output is ``acc / max(l,
     1e-30)``. Returns (B, Tq, H, d) f32. Every trip of either loop has the
-    same shapes, so under a roofline counter each runs once with its
-    counts multiplied by its trip count (``roofline/counter.py::trips``)."""
+    same shapes, so under a roofline counter each is folded to two trips
+    whose counts add up to its trip count (``roofline/counter.py::trips``)."""
     B, Tq, KV, G, d = qg.shape
     Tk = k.shape[1]
     nq, nk = -(-Tq // chunk_q), -(-Tk // chunk_k)

@@ -82,6 +82,20 @@ def init_mlstm(generator: torch.Generator, cfg: ArchConfig, stack=()):
     }
 
 
+def _gate_product(xf, w):
+    """``xf @ w`` for the gate logits. With a population's lane axis
+    (``xf`` (P, B, T, D)) the product is batched over the lanes, never the
+    lanes folded into the rows of one matmul: a library GEMM may sum
+    another way for another row count, and a lane's bits must not depend
+    on how many lanes share the call (``distributed/pop_sharding.py``)."""
+    if xf.ndim < 4:
+        return torch.matmul(xf, w)
+    lanes = xf.shape[0]
+    out = torch.bmm(xf.reshape(lanes, -1, xf.shape[-1]),
+                    w.expand((lanes,) + tuple(w.shape)))
+    return out.reshape(xf.shape[:-1] + (w.shape[-1],))
+
+
 def _mlstm_qkvg(p, cfg: ArchConfig, x, mm: Optional[Mm] = None):
     """q, k, v (..., T, H, dh) in x's dtype; the input and forget gate
     logits (..., T, H) in f32."""
@@ -91,8 +105,8 @@ def _mlstm_qkvg(p, cfg: ArchConfig, x, mm: Optional[Mm] = None):
     heads = x.shape[:-1] + (H, dh)
     q, k, v = (mm(key, x).reshape(heads) for key in ("wq", "wk", "wv"))
     xf = x.to(torch.float32)
-    logi = torch.matmul(xf, p["wi"])
-    logf = F.logsigmoid(torch.matmul(xf, p["wf"]) + p["fbias"])
+    logi = _gate_product(xf, p["wi"])
+    logf = F.logsigmoid(_gate_product(xf, p["wf"]) + p["fbias"])
     return q, k, v, logi, logf
 
 

@@ -34,12 +34,14 @@ what it dispatches, on an executed run (CPU or card) or on meta tensors
   ``reckoned_peak_bytes`` is the first plus the second. Storages are
   followed by weak references, so a freed intermediate leaves the count.
 - Trip counts: ``trips(n)`` is ``range(n)`` except under a counter, where
-  it runs the body once with its counts multiplied by n, as the reference
-  multiplies a loop body by its trip count (``hlo_analysis.py:265``). The
-  train step's microbatches and the decode loop's tokens use it, and the
-  flash branch's chunk loops (whose every trip has the same shapes).
-  Memory is not multiplied: a folded loop's trips each free what they
-  make.
+  it runs the body twice, the second trip's counts multiplied by n - 1, as
+  the reference multiplies a loop body by its trip count
+  (``hlo_analysis.py:265``). The train step's microbatches and the decode
+  loop's tokens use it, and the flash branch's chunk loops (whose every
+  trip has the same shapes: fold only such loops). Memory is not
+  multiplied: the second trip runs beside what the first left alive (the
+  microbatch loop's gradient accumulator), which is the steady state of
+  every later trip.
 
 ``top_contributors(fn, *args)`` lists the aten ops and kernels by FLOPs and
 by bytes. A count reads no tensor's values, so meta tensors go through the
@@ -47,6 +49,7 @@ whole step; an op that needs data (``.item()``) raises on meta.
 """
 from __future__ import annotations
 
+import itertools
 import weakref
 from dataclasses import asdict, dataclass, field
 from typing import Dict, List, NamedTuple, Optional
@@ -193,6 +196,15 @@ def _flat(seq, out: list) -> list:
     return out
 
 
+def _call_weakly(ref, method: str, key: int) -> None:
+    """A storage's finalizer: calls the counter's ``method`` if the
+    counter is still alive, so that a long-lived storage does not keep the
+    counter that saw it alive."""
+    counter = ref()
+    if counter is not None:
+        getattr(counter, method)(key)
+
+
 class Counter(TorchDispatchMode):
     """The dispatch mode behind ``count``; use it as a context manager to
     count a block (``finish(result)`` then gives the counts)."""
@@ -211,6 +223,7 @@ class Counter(TorchDispatchMode):
         self._pre: Dict[int, int] = {}             # older storages: bytes
         self._reads: Dict[int, Dict] = {}
         self._writes: Dict[int, Dict] = {}
+        self._tombs = itertools.count()          # keys of freed older storages
         self._meta_cache: Dict = {}
         for t in _tensors(arguments):
             self._note_pre(t)
@@ -225,6 +238,8 @@ class Counter(TorchDispatchMode):
             return None
         if key not in self._pre:
             self._pre[key] = st.nbytes()
+            weakref.finalize(st, _call_weakly, weakref.ref(self), "_retire",
+                             key)
         return key
 
     def _track(self, t: torch.Tensor) -> None:
@@ -236,11 +251,22 @@ class Counter(TorchDispatchMode):
         self._made[key] = nbytes
         self._live += nbytes
         self._peak = max(self._peak, self._live)
-        weakref.finalize(st, self._free, key)
+        weakref.finalize(st, _call_weakly, weakref.ref(self), "_free", key)
 
     def _free(self, key: int) -> None:
         if self._open:
             self._live -= self._made.pop(key, 0)
+
+    def _retire(self, key: int) -> None:
+        """An older storage freed during the step keeps its bytes and books
+        under a key of its own, so that a storage the step makes later at
+        the same address is not taken for it."""
+        if self._open and key in self._pre:
+            tomb = ("freed", next(self._tombs))
+            self._pre[tomb] = self._pre.pop(key)
+            for book in (self._reads, self._writes):
+                if key in book:
+                    book[tomb] = book.pop(key)
 
     def _touch(self, book: Dict, t: torch.Tensor, nbytes: float) -> None:
         key = self._note_pre(t)
@@ -415,17 +441,22 @@ def top_contributors(fn, *args, top: int = 12, **kwargs):
 
 
 def trips(n: int):
-    """``range(n)``; under a counter that folds trips, the body runs once
-    (index 0) with its counts multiplied by ``n``."""
+    """``range(n)``; under a counter that folds trips, the body runs twice:
+    index 0 counted once, then index 1 with its counts multiplied by
+    ``n - 1``. FLOPs, bytes and launches are those of ``n`` bodies, and the
+    second trip sees what the first left alive (an accumulator), so the
+    memory high-water mark is that of a later trip."""
     if n <= 1 or not _ACTIVE or not _ACTIVE[-1].fold_trips:
         return range(n)
     return _folded(_ACTIVE[-1], n)
 
 
 def _folded(counter: Counter, n: int):
-    counter._mult *= n
+    mult = counter._mult
     try:
         yield 0
+        counter._mult = mult * (n - 1)
+        yield 1
     finally:
-        counter._mult //= n
+        counter._mult = mult
 

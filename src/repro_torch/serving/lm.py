@@ -36,8 +36,8 @@ from repro_torch.roofline.counter import trips
 def decode_loop(params, cfg, tokens, gen: int, head_fn=None):
     """Greedy prefill + ``gen`` decode steps; the output head is ``head_fn``
     (dense when None). Returns the generated (B, gen) tokens. Under a
-    roofline counter one decode step runs, its counts multiplied by
-    ``gen`` (``roofline/counter.py::trips``)."""
+    roofline counter two decode steps run, the second's counts multiplied
+    by ``gen - 1`` (``roofline/counter.py::trips``)."""
     logits, cache = tfm.prefill(params, cfg, tokens,
                                 max_len=tokens.shape[1] + gen,
                                 head_fn=head_fn)

@@ -10,25 +10,37 @@ crash mid-save never corrupts the latest checkpoint. ``restore`` verifies
 the checksum and rebuilds the template's structure with every tensor on
 its template leaf's device.
 
+At a full-size model the checksum costs as much as the write: ``save``
+writes the npz straight to its file and reads it back through sha256 on a
+worker thread while the file is synced; ``restore`` hashes the bytes on a
+worker thread while ``np.load`` parses them, and returns nothing before
+the digest is checked (hashlib releases the GIL on large buffers).
+
 The reference also restores onto a device mesh (a tree of shardings);
-the port has no mesh yet (ROADMAP.md queue 1, item 9), so that branch is
-not carried over.
+the port's only mesh is the population axis (``launch/mesh.py``), and
+model-parallel restores wait for ROADMAP.md queue 1, item 9b, so that
+branch is not carried over.
 """
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import os
 import shutil
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
 
 from repro_torch.core.durable_io import (CorruptFileError, flatten_tree,
-                                         fsync_dir, host_tree, leaf_array,
-                                         sha256_bytes, unflatten_like)
+                                         fsync_dir, fsync_path, host_tree,
+                                         leaf_array, sha256_bytes,
+                                         unflatten_like)
+
+_CHUNK = 64 << 20
 
 
 def _write_fsynced(path: str, data: bytes) -> None:
@@ -36,6 +48,17 @@ def _write_fsynced(path: str, data: bytes) -> None:
         f.write(data)
         f.flush()
         os.fsync(f.fileno())
+
+
+def _sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    buf = memoryview(bytearray(_CHUNK))
+    with open(path, "rb", buffering=0) as f:
+        while True:
+            n = f.readinto(buf)
+            if not n:
+                return h.hexdigest()
+            h.update(buf[:n])
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
@@ -50,12 +73,14 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     flat = {k: leaf_array(v) for k, v in flatten_tree(tree).items()}
-    bio = io.BytesIO()
-    np.savez(bio, **flat)
-    arrays = bio.getvalue()
-    _write_fsynced(os.path.join(tmp, "arrays.npz"), arrays)
+    arrays = os.path.join(tmp, "arrays.npz")
+    np.savez(arrays, **flat)
+    with ThreadPoolExecutor(1) as pool:       # hash while the file syncs
+        digest = pool.submit(_sha256_file, arrays)
+        fsync_path(arrays)
+        checksum = digest.result()
     manifest = {"step": step, "keys": sorted(flat), "time": time.time(),
-                "checksums": {"arrays.npz": sha256_bytes(arrays)}}
+                "checksums": {"arrays.npz": checksum}}
     if extra:
         manifest.update(extra)
     _write_fsynced(os.path.join(tmp, "manifest.json"),
@@ -95,17 +120,25 @@ def restore(ckpt_dir: str, target_tree, step: Optional[int] = None):
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "arrays.npz"), "rb") as f:
         arrays = f.read()
+    expect = None
     manifest_path = os.path.join(path, "manifest.json")
     if os.path.exists(manifest_path):
         with open(manifest_path) as f:
             manifest = json.load(f)
         expect = manifest.get("checksums", {}).get("arrays.npz")
-        if expect is not None and sha256_bytes(arrays) != expect:
+    with ThreadPoolExecutor(1) as pool:       # hash while np.load parses
+        digest = pool.submit(sha256_bytes, arrays) if expect else None
+        try:
+            with np.load(io.BytesIO(arrays)) as z:
+                flat = {k: z[k] for k in z.files}
+        except Exception:
+            if digest is None or digest.result() == expect:
+                raise
+            flat = None
+        if digest is not None and digest.result() != expect:
             raise CorruptFileError(
                 f"{path}/arrays.npz sha256 mismatch — checkpoint is "
                 "corrupt; restore an earlier step")
-    with np.load(io.BytesIO(arrays)) as z:
-        flat = {k: z[k] for k in z.files}
     return unflatten_like(target_tree, flat), step
 
 

@@ -7,9 +7,10 @@ and its gradient (``optimizer.value_and_grad``) and applies
 that many microbatches along its first axis; their losses and float32
 gradients are summed in order and divided by ``accum_steps``, as the
 reference's scan does. Under a roofline counter the microbatch loop runs
-one microbatch with its counts multiplied by ``accum_steps``
+two microbatches, the second counted ``accum_steps - 1`` times
 (``roofline/counter.py::trips``), as the reference's analyzer multiplies
-its scan body by the trip count.
+its scan body by the trip count; the second sees the first's accumulator,
+so the reckoned peak is a later microbatch's.
 """
 from __future__ import annotations
 

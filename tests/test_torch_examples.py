@@ -97,3 +97,45 @@ def test_examples_need_a_card_by_default():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _load("torch_quickstart").main([])
+
+
+def test_mohaq_serving_prices_a_dry_run_cell(tmp_path):
+    """The default mode on a cell written by ``run_cell(reduced=True)``:
+    the H100's rate and capacity price it, and every front member carries
+    its violation of the 80 GB."""
+    import json
+    from repro_torch.launch import dryrun
+    cell = dryrun.run_cell("deepseek-67b", "decode_32k", verbose=False,
+                           kv_cache_int8=True, reduced=True)
+    path = tmp_path / "cell.json"
+    path.write_text(json.dumps(cell))
+    mod = _load("torch_mohaq_serving")
+    out = mod.main(["--artifact", str(path), "--reduced", "--device", "cpu"])
+    assert out["mode"] == "roofline" and out["n_devices"] == 1
+    assert out["front"] and out["fits"] == len(out["front"])
+    assert all(m["violation_gb"] == 0.0 for m in out["front"])
+    with pytest.raises(SystemExit, match="repro_torch.launch.dryrun"):
+        mod.main(["--artifact", str(tmp_path / "missing.json"),
+                  "--device", "cpu"])
+
+
+def test_mohaq_serving_sharded_demo():
+    out = _load("torch_mohaq_serving").main(
+        ["--sharded-demo", "--shards", "4", "--train-steps", "5",
+         "--device", "cpu"])
+    assert out["front_equal"] and out["shards"] == 4
+    assert out["physical_devices"] == 1
+
+
+def test_mohaq_serving_serve_demo():
+    out = _load("torch_mohaq_serving").main(
+        ["--serve-demo", "--train-steps", "5", "--device", "cpu"])
+    assert out["bitwise"] and out["served"]["n_completed"] == 9
+
+
+def test_mohaq_serving_needs_a_card_by_default():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _load("torch_mohaq_serving").main([])

@@ -199,7 +199,9 @@ def test_import_repro_torch_leaves_jax_out():
     assert "repro_torch.kernels.ops" in mods and len(mods) > 15
     assert {"repro_torch.roofline", "repro_torch.roofline.counter",
             "repro_torch.roofline.report", "repro_torch.roofline.tables",
-            "repro_torch.launch.dryrun"} <= set(mods)
+            "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+            "repro_torch.distributed",
+            "repro_torch.distributed.pop_sharding"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -241,14 +243,18 @@ def test_card_scripts_import_no_reference():
 
 
 def test_port_tools_import_no_reference():
-    """The port's table renderer, beside the reference's in ``tools/``."""
-    tool = PORT_ROOT.parent.parent / "tools" / "torch_gen_experiments.py"
-    assert _reference_imports([tool]) == []
+    """The port's table renderer and checkpoint timer, beside the
+    reference's tools in ``tools/``, and the gloo rank program of the mesh
+    tests."""
+    root = PORT_ROOT.parent.parent
+    assert _reference_imports([root / "tools" / "torch_gen_experiments.py",
+                               root / "tools" / "torch_checkpoint_io.py",
+                               root / "tests" / "_torch_pop_ranks.py"]) == []
 
 
 def test_port_examples_import_no_reference():
     """The port's user examples, beside the reference's in ``examples/``
     (outside ``PORT_ROOT``): ``examples/torch_*.py``."""
     files = sorted((PORT_ROOT.parent.parent / "examples").glob("torch_*.py"))
-    assert len(files) == 5
+    assert len(files) == 6
     assert _reference_imports(files) == []
