@@ -6,21 +6,22 @@ search's front packed and served.
 The counterpart of ``examples/mohaq_tpu_serving.py``, on ``repro_torch``
 alone (no JAX). Three modes:
 
-- default: read the dry-run cell
-  ``experiments/torch_dryrun/deepseek-67b_decode_32k_single_kv8.json``
+- default: read the dry-run cell of the (16, 16) mesh,
+  ``experiments/torch_dryrun/deepseek-67b_decode_32k_pod_kv8.json``
   (``python -m repro_torch.launch.dryrun --arch deepseek-67b --shape
-  decode_32k --kv-cache-int8 --tag kv8`` writes it) and search per-group
-  weight bits with NSGA-II. Objectives: a ZeroQ-style sensitivity proxy
-  (sum of MACs x the relative MSE of b-bit quantization of a normal
-  weight) and the decode step's lower bound, the cell's roofline terms
-  with the weight stream rescaled to the candidate's bits, at the H100's
-  memory rate (``roofline/report.py::H100_HBM_BYTES_S``). Constraint: the
-  quantized weights plus the KV cache fit the card's 80 GB
-  (``H100_HBM_CAPACITY_BYTES``) on each of the cell's ``n_devices``. At
-  decode_32k the int8 KV cache alone (95 layers x 2 x 8 KV heads x 128 x
-  32,768 x 128 bytes) is about 816 GB, so no allocation fits one card:
-  every front member's violation is printed. A per-card search waits for
-  the dry run's multi-card counts (ROADMAP item 9b).
+  decode_32k --mesh pod --kv-cache-int8 --tag kv8`` writes it), the
+  counterpart of the reference reading its 256-chip cell, and search
+  per-group weight bits with NSGA-II, per card. Objectives: a ZeroQ-style
+  sensitivity proxy (sum of MACs x the relative MSE of b-bit quantization
+  of a normal weight) and the decode step's lower bound, the cell's
+  roofline terms with the weight stream rescaled to the candidate's bits,
+  at the H100's memory rate (``roofline/report.py::H100_HBM_BYTES_S``).
+  Constraint: one card's quantized weights plus its shard of the KV cache
+  (the cell's per-device argument bytes less its bf16 weights) fit the
+  card's 80 GB (``H100_HBM_CAPACITY_BYTES``). On 256 cards the int8 KV
+  cache (about 816 GB whole) is a few GB a card, so front members fit;
+  the one-card cell (``--mesh single``) still fits none, and then every
+  member's violation is printed.
 - ``--sharded-demo``: the SRU search with every generation partitioned
   over a population mesh (``launch/mesh.py``; ``--shards N`` places N
   shards round-robin on the visible cards, the counterpart of the
@@ -53,9 +54,9 @@ from repro_torch.roofline.report import (H100_HBM_BYTES_S,
 # relative MSE of b-bit symmetric quantization of a unit normal (numeric)
 QNOISE = {2: 0.119, 4: 0.0104, 8: 5.0e-5, 16: 1e-9}
 BITS = [2, 4, 8, 16]
-ARTIFACT = "experiments/torch_dryrun/deepseek-67b_decode_32k_single_kv8.json"
+ARTIFACT = "experiments/torch_dryrun/deepseek-67b_decode_32k_pod_kv8.json"
 DRYRUN = ("python -m repro_torch.launch.dryrun --arch deepseek-67b "
-          "--shape decode_32k --kv-cache-int8 --tag kv8")
+          "--shape decode_32k --mesh pod --kv-cache-int8 --tag kv8")
 
 
 def sharded_demo(dev, shards=None, train_steps=40) -> dict:
@@ -176,8 +177,9 @@ def roofline_search(artifact, reduced=False) -> dict:
     base_mem_s = r["memory_s"]
     # the weight stream's share of the baseline memory term
     other_mem_s = max(base_mem_s - bf16_bytes_dev / H100_HBM_BYTES_S, 0.0)
-    # what the cell holds besides the weights: the int8 KV cache
-    cache_bytes = max(d["memory_analysis"]["argument_bytes"] / n_dev
+    # what a device holds besides its weights: its shard of the int8 KV
+    # cache (the cell's argument bytes are one device's)
+    cache_bytes = max(d["memory_analysis"]["argument_bytes"]
                       - bf16_bytes_dev, 0.0)
     coll_comp = max(r["collective_s"], r["compute_s"])
     sizes = np.asarray([groups[n] for n in names], float)

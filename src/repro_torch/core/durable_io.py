@@ -234,9 +234,12 @@ def unflatten_like(template, flat: Dict[str, np.ndarray]):
 
 def leaf_array(leaf) -> np.ndarray:
     """A leaf (tensor, array or scalar) as a host numpy array; bf16 tensors
-    become ``ml_dtypes.bfloat16`` arrays, as a JAX bf16 array does."""
+    become ``ml_dtypes.bfloat16`` arrays, as a JAX bf16 array does. A
+    DTensor is gathered whole first (a collective: every rank calls it)."""
     if hasattr(leaf, "detach"):                      # a torch tensor
         from repro_torch.models.common import tensor_to_numpy
+        if hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()
         return tensor_to_numpy(leaf)
     return np.asarray(leaf)
 

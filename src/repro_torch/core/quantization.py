@@ -457,6 +457,17 @@ def _layer_slice(node, i: int):
     return node[i]
 
 
+def quant_tree_axes(axes_tree, spec_tree):
+    """Logical axes of the ``quantize_tree`` tree: ``q`` inherits its
+    leaf's axes, ``scale`` is replicated; unquantized leaves keep theirs."""
+    if isinstance(axes_tree, dict):
+        return {k: quant_tree_axes(v, spec_tree[k])
+                for k, v in axes_tree.items()}
+    if _quantizable(spec_tree):
+        return {"q": axes_tree, "scale": ()}
+    return axes_tree
+
+
 class DequantizedByLayer:
     """A ``quantize_tree`` tree of an LM read as the params it came from,
     where they are used: ``tree[key]`` dequantizes a top-level entry when

@@ -200,6 +200,9 @@ def _qmm_report(x, packed_w, scales, bits):
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    if type(t).__name__ == "DTensor":
+        raise TypeError("a kernel takes plain tensors: pass a DTensor's "
+                        "to_local() shard")
     # The launch is asynchronous and the caller may drop its tensors at once:
     # safe, because the caching allocator only reuses a block for work on
     # the same stream, which runs after the kernel.

@@ -16,14 +16,25 @@ trees took to build, ``compile_s`` is 0, ``analyze_s`` the count's.
     python -m repro_torch.launch.dryrun --all [--out experiments/torch_dryrun]
     python -m repro_torch.launch.dryrun --arch xlstm-350m --shape decode_32k \\
         --run-on-card [--serve-wbits 8]
+    python -m repro_torch.launch.dryrun --arch deepseek-67b \\
+        --shape decode_32k --mesh multi --kv-cache-int8
 
-``--mesh single`` is one H100 here (the reference's ``single`` is a 16 x 16
-TPU pod, its ``launch/mesh.py:15``). The reference's sharding and
-cross-shard levers, ``--mesh multi|both``, ``--rules`` and
-``--bf16-partials``, exit non-zero: the port's one mesh is the search's
-population axis, and a (data, model) mesh waits for ROADMAP item 9b. A
-cell that does not fit one card is a finding, not a failure: its status
-stays ``ok`` with ``fits`` false. ``--run-on-card`` also runs one
+``--mesh single`` is one H100 here. ``--mesh pod`` is the reference's
+``single``, a (16, 16) ("data", "model") mesh, ``--mesh multi`` its (2,
+16, 16) ("pod", "data", "model") mesh, ``--mesh both`` the two
+(``launch/mesh.py::make_production_mesh``). A mesh cell runs on meta
+tensors under a fake process group of the mesh's size, made at start (as
+the reference sets ``XLA_FLAGS`` first): the state is placed on the
+logical-axes trees (``tree_shardings``, ``ensure_model=True``, FSDP when
+the state over the model axis passes ``FSDP_BUDGET_GIB``), the batch on
+``batch_axes`` and a decode cache on ``cache_axes`` with the reference's
+cache rules, ``--rules`` overrides the logical rules (JSON) and
+``--bf16-partials`` reduces row-parallel partial sums in bf16
+(``models/common.py::BF16_PARTIALS``). The counts are one device's (its
+local shards), with DTensor's collectives priced by the ring model, and
+``fits`` holds that device to one card's 80 GB. A cell that does not fit
+is a finding, not a failure: its status stays ``ok`` with ``fits``
+false. ``--run-on-card`` (one card) also runs one
 real step of each cell that fits on the card, at full size on seeded
 weights: the median of 5 timed steps after one warm-up,
 ``torch.cuda.max_memory_allocated`` beside the reckoned peak, and
@@ -46,23 +57,29 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import SHAPES, SHAPES_BY_NAME, \
     reduced_shape, shape_applicable
 from repro_torch.core import quantization as Q
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch import mesh as lmesh
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
-from repro_torch.models.registry import get_model, input_specs, \
-    make_dummy_batch
+from repro_torch.models.registry import batch_axes, get_model, \
+    input_specs, make_dummy_batch
 from repro_torch.roofline import counter
 from repro_torch.roofline.report import H100_HBM_CAPACITY_BYTES, \
     RooflineReport, model_flops_for
 from repro_torch.training import optimizer as opt
 from repro_torch.training import train_step as ts
 
-WAITS = ("waits for ROADMAP item 9b (the port has no (data, model) mesh "
-         "yet)")
+MESHES = {"pod": dict(multi_pod=False), "multi": dict(multi_pod=True)}
+MESH_DEVICES = {"pod": 256, "multi": 512}
 # Activation budget of _auto_accum: the remat-saved layer inputs of one
 # microbatch. The reference allows 6 GiB of a 16 GiB TPU chip; the same
 # share of an 80 GB card is 30 GiB, which leaves the rest for the
 # parameters, the optimizer state and one block's recomputation.
 ACT_BUDGET_GIB = 6.0 * 80 / 16
+# The FSDP switch: the reference shards the state over data too when the
+# state over the model axis would pass 12 GiB of a 16 GiB chip; the same
+# share of an 80 GB card
+FSDP_BUDGET_GIB = 12.0 * 80 / 16
 
 
 class _OnMeta(TorchFunctionMode):
@@ -111,12 +128,12 @@ def quant_specs(pspecs, bits: int):
     return on_meta(Q.quantize_tree, pspecs, bits)
 
 
-def _auto_accum(cfg, shape, start: int, budget_gib: float = ACT_BUDGET_GIB
-                ) -> int:
-    """The reference's rule with one device (dp = 1): grad-accumulation so
-    that remat-saved layer inputs (L x B_micro x S x D bf16) fit the
-    activation budget; the microbatch stays >= 1."""
-    dp = 1
+def _auto_accum(cfg, shape, start: int, budget_gib: float = ACT_BUDGET_GIB,
+                dp: int = 1) -> int:
+    """The reference's rule: grad-accumulation so that remat-saved layer
+    inputs (L x B_micro/dev x S x D bf16) fit the activation budget, with
+    ``dp`` data-parallel devices (1 on one card); the microbatch stays
+    >= 1 a device."""
     accum = max(1, start)
     layers = cfg.n_layers + getattr(cfg, "n_dec_layers", 0)
     while True:
@@ -128,6 +145,83 @@ def _auto_accum(cfg, shape, start: int, budget_gib: float = ACT_BUDGET_GIB
                 shape.global_batch % (dp * accum * 2) != 0:
             return accum
         accum *= 2
+
+
+def _tree_gib(tree) -> float:
+    return sum(t.numel() * t.element_size() for t in opt.tree_leaves(tree)
+               if isinstance(t, torch.Tensor)) / 2**30
+
+
+def cache_rules(cfg, shape, mesh):
+    """The reference's decode cache rules (its dryrun.py:146-165): a batch
+    smaller than the data axes shards the cache's sequence over "data"
+    (and its head dim over "model" where the kv heads do not divide it);
+    kv heads that the model axis does not divide shard the sequence over
+    "model" (else the head dim), so the cache is not replicated across
+    the model axis."""
+    crules = {}
+    dp = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
+    mp = mesh.shape.get("model", 1)
+    if shape.global_batch < dp:
+        crules.update(cache_batch=None, cache_seq=("data",))
+        if cfg.n_kv_heads % mp != 0 and cfg.head_dim % mp == 0:
+            crules["cache_hd"] = ("model",)
+    elif cfg.n_kv_heads % mp != 0:
+        if shape.seq_len % mp == 0:
+            crules["cache_seq"] = ("model",)
+        elif cfg.head_dim % mp == 0:
+            crules["cache_hd"] = ("model",)
+    return crules or None
+
+
+def build_mesh_step(cfg, shape, mesh, *, accum_steps: int = 2,
+                    serve_wbits: int = 0, rules=None):
+    """The cell's step on ``mesh`` and its arguments as DTensors of meta
+    local shards, placed as the reference's dry run shards them. Returns
+    (step, args, accum_steps or None, fsdp)."""
+    model = get_model(cfg, device="cpu")
+    specs = input_specs(cfg, shape)
+    static = {}
+    if "max_len" in specs:
+        static["max_len"] = specs.pop("max_len")
+    baxes = batch_axes(cfg, shape)
+    baxes.pop("max_len", None)
+    batch = sh.place_tree(specs, sh.tree_shardings(mesh, baxes, specs,
+                                                   rules=rules))
+    model_axis = mesh.shape.get("model", 1)
+
+    def placed(tree, axes):
+        fsdp = _tree_gib(tree) / model_axis > FSDP_BUDGET_GIB
+        return sh.place_tree(tree, sh.tree_shardings(
+            mesh, axes, tree, rules=rules, fsdp=fsdp,
+            ensure_model=True)), fsdp
+
+    if shape.kind == "train":
+        dp = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
+        accum = _auto_accum(cfg, shape, accum_steps, dp=dp)
+        state, fsdp = placed(train_state_specs(model),
+                             ts.train_state_axes(model))
+        step = ts.make_train_step(model, opt.AdamWConfig(),
+                                  accum_steps=accum)
+        return step, (state, batch), accum, fsdp
+    pspecs = param_specs(model)
+    if shape.kind == "prefill":
+        params, fsdp = placed(pspecs, model.axes())
+        return ts.make_serve_prefill(model, static), (params, batch), None, \
+            fsdp
+    if serve_wbits:
+        step = make_wbits_decode(model, pspecs, serve_wbits)
+        params, fsdp = placed(quant_specs(pspecs, serve_wbits),
+                              Q.quant_tree_axes(model.axes(), pspecs))
+    else:
+        step = ts.make_serve_decode(model)
+        params, fsdp = placed(pspecs, model.axes())
+    # the cache rules alone over the defaults, as in the reference
+    cache = cache_specs(model, shape.global_batch, shape.seq_len)
+    cache = sh.place_tree(cache, sh.tree_shardings(
+        mesh, model.cache_axes(), cache,
+        rules=cache_rules(cfg, shape, mesh)))
+    return step, (params, cache, batch), None, fsdp
 
 
 def build_step(cfg, shape, *, accum_steps: int = 2, serve_wbits: int = 0,
@@ -178,20 +272,25 @@ def make_wbits_decode(model, pspecs, bits: int):
     return step
 
 
-def _levers(moe_group: int, moe_dispatch: str, kv_cache_int8: bool):
+def _levers(moe_group: int, moe_dispatch: str, kv_cache_int8: bool,
+            bf16_partials: bool = False):
     """Set the reference's perf levers; returns their old values."""
-    old = (cm.MOE_GROUP_SIZE, cm.MOE_DISPATCH, tfm.KV_CACHE_DTYPE)
+    old = (cm.MOE_GROUP_SIZE, cm.MOE_DISPATCH, tfm.KV_CACHE_DTYPE,
+           cm.BF16_PARTIALS)
     if moe_group:
         cm.MOE_GROUP_SIZE = moe_group
     if moe_dispatch:
         cm.MOE_DISPATCH = moe_dispatch
     if kv_cache_int8:
         tfm.KV_CACHE_DTYPE = torch.int8
+    if bf16_partials:
+        cm.BF16_PARTIALS = True
     return old
 
 
 def _restore(old) -> None:
-    cm.MOE_GROUP_SIZE, cm.MOE_DISPATCH, tfm.KV_CACHE_DTYPE = old
+    (cm.MOE_GROUP_SIZE, cm.MOE_DISPATCH, tfm.KV_CACHE_DTYPE,
+     cm.BF16_PARTIALS) = old
 
 
 def _sync(dev) -> None:
@@ -231,15 +330,26 @@ def run_on_card(cfg, shape, *, accum_steps: int = 2, serve_wbits: int = 0,
     return out
 
 
+def production_mesh(mesh_kind: str):
+    """The ``pod`` or ``multi`` mesh over a fake process group (made here
+    if no group of that size is up)."""
+    lmesh.init_fake_group(MESH_DEVICES[mesh_kind])
+    return lmesh.make_production_mesh(**MESHES[mesh_kind])
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
-             verbose: bool = True, accum_steps: int = 2,
+             rules_override=None, verbose: bool = True, accum_steps: int = 2,
+             bf16_partials: bool = False,
              moe_group: int = 0, moe_dispatch: str = "",
              serve_wbits: int = 0, kv_cache_int8: bool = False,
              run_card: bool = False, reduced: bool = False) -> dict:
     """One cell: its JSON artifact as a dict (``reduced``: the config's
     and the shape's CPU-test sizes, ``reduced()`` and ``reduced_shape``)."""
-    if mesh_kind != "single":
-        raise NotImplementedError(f"--mesh {mesh_kind} {WAITS}")
+    if mesh_kind not in ("single",) + tuple(MESHES):
+        raise ValueError(f"unknown mesh {mesh_kind!r}")
+    if mesh_kind == "single" and (rules_override or bf16_partials):
+        raise ValueError("--rules and --bf16-partials act on a mesh: "
+                         "--mesh pod|multi|both")
     cfg = get_config(arch)
     shape = SHAPES_BY_NAME[shape_name]
     skip = shape_applicable(cfg, shape)
@@ -248,30 +358,43 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
     if skip:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
                 "status": "skip", "reason": skip}
-    old = _levers(moe_group, moe_dispatch, kv_cache_int8)
+    old = _levers(moe_group, moe_dispatch, kv_cache_int8, bf16_partials)
+    wbits = serve_wbits if shape.kind == "decode" else 0
+    mesh, fsdp, rules = None, False, None
     try:
         t0 = time.time()
-        step, args, accum = build_step(cfg, shape, accum_steps=accum_steps,
-                                       serve_wbits=serve_wbits
-                                       if shape.kind == "decode" else 0)
+        if mesh_kind == "single":
+            step, args, accum = build_step(cfg, shape,
+                                           accum_steps=accum_steps,
+                                           serve_wbits=wbits)
+            ctx = sh.axis_rules(None)
+        else:
+            mesh = production_mesh(mesh_kind)
+            rules = _rules(rules_override)
+            step, args, accum, fsdp = build_mesh_step(
+                cfg, shape, mesh, accum_steps=accum_steps,
+                serve_wbits=wbits, rules=rules)
+            ctx = sh.axis_rules(mesh, rules)
         t_lower = time.time() - t0
         t0 = time.time()
-        counts = counter.count(step, *args)
+        with ctx:
+            counts = counter.count(step, *args)
         t_analyze = time.time() - t0
         del step, args
         card = None
         fits = counts.reckoned_peak_bytes < H100_HBM_CAPACITY_BYTES
-        if run_card and fits:
+        if run_card and fits and mesh is None:
             card = run_on_card(cfg, shape, accum_steps=accum_steps,
-                               serve_wbits=serve_wbits
-                               if shape.kind == "decode" else 0)
+                               serve_wbits=wbits)
     finally:
         _restore(old)
+    n_dev = mesh.size if mesh is not None else 1
     rep = RooflineReport.build(
-        arch=arch, shape=shape_name, mesh=mesh_kind, n_devices=1,
-        counts=counts, model_flops=model_flops_for(cfg, shape))
+        arch=arch, shape=shape_name, mesh=mesh_kind, n_devices=n_dev,
+        counts=counts, model_flops=model_flops_for(cfg, shape),
+        group_sizes=mesh.shape if mesh is not None else None)
     out = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
-           "status": "ok", "fsdp": False,
+           "status": "ok", "fsdp": bool(fsdp),
            "accum_steps": accum if shape.kind == "train" else None,
            "lower_s": round(t_lower, 2), "compile_s": 0.0,
            "analyze_s": round(t_analyze, 2),
@@ -283,17 +406,22 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
            },
            "cost_analysis": {},
            "roofline": json.loads(rep.to_json()),
-           "n_devices": 1, "fits": bool(fits),
+           "n_devices": n_dev, "fits": bool(fits),
            "reckoned_peak_bytes": counts.reckoned_peak_bytes,
+           "closure_bytes": counts.closure_bytes,
            "floor_s": rep.floor_s, "serve_wbits": serve_wbits,
            "kv_cache_int8": kv_cache_int8}
+    if mesh is not None:
+        out.update(mesh_shape=mesh.shape, rules=rules,
+                   bf16_partials=bf16_partials)
     if card is not None:
         card["floor_over_measured"] = rep.floor_s * 1e3 / card["ms"]
         card["reckoned_peak_bytes"] = counts.reckoned_peak_bytes
         out["card"] = card
     if verbose:
         print("  " + rep.summary_row())
-        print(f"  mem: args={counts.argument_bytes/2**30:.2f}GiB "
+        where = "/device" if mesh is not None else ""
+        print(f"  mem{where}: args={counts.argument_bytes/2**30:.2f}GiB "
               f"temp={counts.temp_bytes/2**30:.2f}GiB "
               f"out={counts.output_bytes/2**30:.2f}GiB fits={fits} "
               f"(specs {t_lower:.1f}s count {t_analyze:.1f}s)")
@@ -304,21 +432,36 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
     return out
 
 
+def _rules(rules):
+    """``--rules`` JSON (lists become tuples of mesh axes)."""
+    if not rules:
+        return None
+    if isinstance(rules, str):
+        rules = json.loads(rules)
+    return {k: tuple(v) if isinstance(v, list) else v
+            for k, v in rules.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default="single",
-                    choices=["single", "multi", "both"])
+                    choices=["single", "pod", "multi", "both"],
+                    help="single: one H100; pod: (16, 16) data x model; "
+                         "multi: (2, 16, 16) pod x data x model; both: "
+                         "pod and multi")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="experiments/torch_dryrun")
     ap.add_argument("--rules", default=None,
-                    help=f"sharding-rule overrides: {WAITS}")
+                    help="JSON logical-rule overrides, e.g. "
+                         "'{\"mlp\": null}' (a mesh's cells)")
     ap.add_argument("--tag", default="")
     ap.add_argument("--accum", type=int, default=2,
                     help="grad-accumulation microbatches for train shapes")
     ap.add_argument("--bf16-partials", action="store_true",
-                    help=f"bf16 cross-shard partial sums: {WAITS}")
+                    help="perf lever: bf16 cross-shard partial sums (a "
+                         "mesh's cells)")
     ap.add_argument("--moe-group", type=int, default=0,
                     help="perf lever: MoE token-group size")
     ap.add_argument("--moe-dispatch", default="",
@@ -332,13 +475,13 @@ def main(argv=None) -> int:
                     help="also run one real step of each cell that fits on "
                          "the card")
     args = ap.parse_args(argv)
-    unported = [flag for flag, on in (
-        (f"--mesh {args.mesh}", args.mesh != "single"),
-        ("--rules", args.rules is not None),
-        ("--bf16-partials", args.bf16_partials)) if on]
-    if unported:
-        print(f"[dryrun] {', '.join(unported)} {WAITS}", file=sys.stderr)
+    meshes = ["pod", "multi"] if args.mesh == "both" else [args.mesh]
+    if meshes == ["single"] and (args.rules or args.bf16_partials):
+        print("[dryrun] --rules and --bf16-partials act on a mesh: pass "
+              "--mesh pod|multi|both", file=sys.stderr)
         return 2
+    if meshes != ["single"]:          # the fake group first, of the largest
+        lmesh.init_fake_group(max(MESH_DEVICES[m] for m in meshes))
 
     archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]
     shapes = [s.name for s in SHAPES] if (args.all or not args.shape) \
@@ -347,26 +490,29 @@ def main(argv=None) -> int:
     failures = 0
     for arch in archs:
         for shape in shapes:
-            tag = f"{arch}_{shape}_{args.mesh}" + \
-                (f"_{args.tag}" if args.tag else "")
-            print(f"[dryrun] {tag}", flush=True)
-            try:
-                res = run_cell(arch, shape, args.mesh,
-                               accum_steps=args.accum,
-                               moe_group=args.moe_group,
-                               moe_dispatch=args.moe_dispatch,
-                               serve_wbits=args.serve_wbits,
-                               kv_cache_int8=args.kv_cache_int8,
-                               run_card=args.run_on_card)
-            except Exception as e:
-                traceback.print_exc()
-                res = {"arch": arch, "shape": shape, "mesh": args.mesh,
-                       "status": "fail", "error": f"{type(e).__name__}: {e}"}
-                failures += 1
-            if res["status"] == "skip":
-                print(f"  SKIP: {res['reason']}")
-            with open(os.path.join(args.out, tag + ".json"), "w") as f:
-                json.dump(res, f, indent=1)
+            for mesh_kind in meshes:
+                tag = f"{arch}_{shape}_{mesh_kind}" + \
+                    (f"_{args.tag}" if args.tag else "")
+                print(f"[dryrun] {tag}", flush=True)
+                try:
+                    res = run_cell(arch, shape, mesh_kind, args.rules,
+                                   accum_steps=args.accum,
+                                   bf16_partials=args.bf16_partials,
+                                   moe_group=args.moe_group,
+                                   moe_dispatch=args.moe_dispatch,
+                                   serve_wbits=args.serve_wbits,
+                                   kv_cache_int8=args.kv_cache_int8,
+                                   run_card=args.run_on_card)
+                except Exception as e:
+                    traceback.print_exc()
+                    res = {"arch": arch, "shape": shape, "mesh": mesh_kind,
+                           "status": "fail",
+                           "error": f"{type(e).__name__}: {e}"}
+                    failures += 1
+                if res["status"] == "skip":
+                    print(f"  SKIP: {res['reason']}")
+                with open(os.path.join(args.out, tag + ".json"), "w") as f:
+                    json.dump(res, f, indent=1)
     print(f"[dryrun] done, {failures} failures")
     return 1 if failures else 0
 

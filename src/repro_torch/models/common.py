@@ -18,6 +18,11 @@ bf16 between layers, as there. The reference's matmuls take
 On the card run these with TF32 and reduced-precision bf16 reductions off
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
 ``allow_bf16_reduced_precision_reduction = False``).
+
+On a mesh (``distributed/sharding.py``) the params are DTensors placed by
+the logical-axes trees (``ATTN_AXES``, ``MLP_AXES``, ``moe_axes``) and
+``shard()`` constrains the activations where the reference's does; off a
+mesh both are no-ops.
 """
 from __future__ import annotations
 
@@ -28,8 +33,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import from_local, is_dtensor, \
+    reduce_partial, shard, split_over, whole
 from repro_torch.roofline.counter import trips
 
+# BF16_PARTIALS (the reference's perf lever, set by ``launch/dryrun.py
+# --bf16-partials``): a row-parallel product rounds each shard's partial sum
+# to bf16, so the cross-shard reduction moves half the bytes. Off (the
+# default), the partial sums stay f32 through the reduction and round once.
+BF16_PARTIALS = False
 DENSE_ATTN_MAX = 8192   # the reference's limit of its materialized-score path
 # MoE dispatch, read at call time as in the reference: the token-group size
 # and the algorithm ("einsum": GShard one-hot products; "gather": the top-C
@@ -71,11 +83,28 @@ def tree_map(fn, tree):
 # ---------------------------------------------------------------- utilities
 
 def dense(x, w):
-    """x @ w in x's dtype (bf16: f32 accumulation, one rounding)."""
-    return torch.matmul(x, w)
+    """x @ w in x's dtype (bf16: f32 accumulation, one rounding). Where x's
+    contracted dim is split over a mesh axis (a row-parallel product on
+    DTensors: each shard holds a partial sum), the partial sums are
+    reduced across the shards in f32 and rounded once after the reduction,
+    or, under ``BF16_PARTIALS``, rounded on each shard and reduced in
+    bf16."""
+    if not split_over(x, -1):
+        return torch.matmul(x, w)
+    if BF16_PARTIALS:
+        return reduce_partial(torch.matmul(x, w))
+    y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    return reduce_partial(y).to(x.dtype)
 
 
 def rms_norm(x, w, eps: float = 1e-5):
+    """RMSNorm in f32, rounded to x's dtype. A norm weight split over a mesh
+    axis (``ensure_model`` re-homes "model" on a stacked norm's width) is
+    gathered whole first: a split weight would split the activation's
+    width, and each following product would then reduce its partial sums
+    across the axis."""
+    if is_dtensor(w):
+        w = whole(w)
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
@@ -118,9 +147,11 @@ def rope(x, positions, theta: float = 10000.0):
 
 # ---------------------------------------------------------------- attention
 
-def _attn_block(q, k, v, qpos, kpos, kv_valid):
+def _attn_block(q, k, v, qpos, kpos, kv_valid, reduce=None):
     """Full GQA attention for one block. q: (B,Tq,KV,G,d), k/v: (B,Tk,KV,d).
-    Returns (B,Tq,KV,G,d) in f32."""
+    Returns (B,Tq,KV,G,d) in f32. With ``reduce(t, op)`` the keys are this
+    rank's share of a sequence split across ranks: the softmax's max and
+    sum and the PV sum are completed by it across those ranks."""
     scores = torch.einsum("btkgd,bskd->bkgts", q.to(torch.float32),
                           k.to(torch.float32))
     scores = scores * (1.0 / math.sqrt(q.shape[-1]))
@@ -128,9 +159,14 @@ def _attn_block(q, k, v, qpos, kpos, kv_valid):
     if kv_valid is not None:
         mask = mask & (kpos[None, :] < kv_valid)
     scores = scores.masked_fill(~mask[None, None, None], -1e30)
-    p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bkgts,bskd->btkgd",
-                        p.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    if reduce is None:
+        p = torch.softmax(scores, dim=-1)
+    else:
+        e = torch.exp(scores - reduce(scores.amax(-1, keepdim=True), "max"))
+        p = e / reduce(e.sum(-1, keepdim=True), "sum")
+    o = torch.einsum("bkgts,bskd->btkgd",
+                     p.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    return o if reduce is None else reduce(o, "sum")
 
 
 def gqa_attention(q, k, v, *, q_offset=0, kv_valid=None,
@@ -145,7 +181,11 @@ def gqa_attention(q, k, v, *, q_offset=0, kv_valid=None,
     chunk each way) the scores are materialized (``_attn_block``, the
     differentiable training path); past it the flash-style branch
     (``_flash_attention``) walks q-chunks and kv-chunks with an online
-    softmax, the forward-only long-prefill path."""
+    softmax, the forward-only long-prefill path. On DTensors each rank
+    attends over its own shards (``_mesh_attention``)."""
+    if is_dtensor(q) or is_dtensor(k):
+        return _mesh_attention(q, k, v, q_offset, kv_valid, chunk_q, chunk_k,
+                               causal, dense_max)
     B, Tq, H, d = q.shape
     _, Tk, KV, _ = k.shape
     G = H // KV
@@ -159,6 +199,115 @@ def gqa_attention(q, k, v, *, q_offset=0, kv_valid=None,
     if not causal:
         qpos = torch.full((Tq,), Tk, device=q.device)     # everything visible
     o = _attn_block(qg, k, v, qpos, kpos, kv_valid)
+    return o.reshape(B, Tq, H, d).to(q.dtype)
+
+
+def _mesh_plan(q, k):
+    """Per mesh dim of the keys' mesh: how the attention splits over it,
+    "batch", "heads" (q's heads and k's kv-heads in aligned chunks),
+    "q_heads" (q's heads split, the kv-heads replicated: each rank keeps the
+    kv-heads its q-heads read), "seq" (the keys' sequence split: a cache
+    sharded on ``cache_seq``) or None (replicated). The keys' split decides
+    (the cache is the tensor not to move); what cannot be followed is
+    replicated."""
+    from torch.distributed.tensor import Shard
+    B, Tq, H, _ = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    plan, head_dims = [], 0
+    for i, pk in enumerate(k.placements):
+        n = k.device_mesh.size(i)
+        pq = q.placements[i]
+        kd = pk.dim if isinstance(pk, Shard) else None
+        qd = pq.dim if isinstance(pq, Shard) else None
+        if n == 1:
+            plan.append(None)
+        elif kd == 0 and B % n == 0:
+            plan.append("batch")
+        elif kd == 1 and Tq <= DENSE_ATTN_MAX:
+            plan.append("seq")
+        elif kd == 2 and KV % n == 0 and not head_dims:
+            plan.append("heads")
+            head_dims += 1
+        elif kd is None and qd == 2 and H % n == 0 and not head_dims and (
+                G % (H // n) == 0 or (H // n) % G == 0):
+            plan.append("q_heads")
+            head_dims += 1
+        else:
+            plan.append(None)
+    return plan
+
+
+def _mesh_attention(q, k, v, q_offset, kv_valid, chunk_q, chunk_k, causal,
+                    dense_max):
+    """``gqa_attention`` on DTensors: q, k and v are redistributed to the
+    split ``_mesh_plan`` gives each mesh dim, and every rank runs the plain
+    attention on its shards, which is the unsharded computation on each
+    (batch, head) slice. Where the keys' sequence is split (a decode over a
+    cache sharded on ``cache_seq``) each rank scores its own keys at their
+    global positions, and the softmax's max and sum and the PV product are
+    reduced across those ranks (all-reduces of (B, H, Tq)-sized rows); the
+    normalized probabilities round to v's dtype before the PV product, as
+    in ``_attn_block``. Returns q's shape, heads split as q's were."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = (k if is_dtensor(k) else q).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    q, k, v = (x if is_dtensor(x) else DTensor.from_local(
+        x, mesh, rep, run_check=False) for x in (q, k, v))
+    B, Tq, H, d = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    plan = _mesh_plan(q, k)
+    qpl = [Shard(0) if s == "batch" else Shard(2) if s in ("heads",
+           "q_heads") else Replicate() for s in plan]
+    kpl = [Shard({"batch": 0, "seq": 1, "heads": 2}[s])
+           if s in ("batch", "seq", "heads") else Replicate() for s in plan]
+    q = q.redistribute(mesh, qpl)
+    k, v = k.redistribute(mesh, kpl), v.redistribute(mesh, kpl)
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    if "q_heads" in plan:                  # the kv-heads of the local q-heads
+        _, off = compute_local_shape_and_global_offset(q.shape, mesh, qpl)
+        h0, hl = off[2], ql.shape[2]
+        kv0, kv1 = h0 // G, (h0 + hl - 1) // G + 1
+        kl, vl = kl[:, :, kv0:kv1], vl[:, :, kv0:kv1]
+    seq = [i for i, s in enumerate(plan) if s == "seq"]
+    if not seq:
+        o = gqa_attention(ql, kl, vl, q_offset=q_offset, kv_valid=kv_valid,
+                          chunk_q=chunk_q, chunk_k=chunk_k, causal=causal,
+                          dense_max=dense_max)
+    else:
+        _, koff = compute_local_shape_and_global_offset(k.shape, mesh, kpl)
+        o = _split_seq_attention(ql, kl, vl, q_offset, kv_valid, causal,
+                                 koff[1], Tk=k.shape[1],
+                                 reduce=lambda t, op: _reduce_over(
+                                     funcol, t, op, mesh, seq))
+    return from_local(o.contiguous(), mesh, qpl, q.shape)
+
+
+def _reduce_over(funcol, t, op, mesh, dims):
+    for i in dims:
+        t = funcol.all_reduce(t, op, (mesh, i))
+    return t
+
+
+def _split_seq_attention(q, k, v, q_offset, kv_valid, causal, k0, Tk,
+                         reduce):
+    """``_attn_block`` over this rank's keys (global positions ``k0 +
+    j``), completed by ``reduce(t, op)`` across the ranks that hold the
+    other keys."""
+    B, Tq, H, d = q.shape
+    KV = k.shape[2]
+    dev = q.device
+    qpos = q_offset + torch.arange(Tq, device=dev)
+    if not causal:
+        qpos = torch.full((Tq,), Tk, device=dev)
+    kpos = k0 + torch.arange(k.shape[1], device=dev)
+    o = _attn_block(q.reshape(B, Tq, KV, H // KV, d), k, v, qpos, kpos,
+                    kv_valid, reduce)
     return o.reshape(B, Tq, H, d).to(q.dtype)
 
 
@@ -242,25 +391,35 @@ def init_attn(generator, d_model, n_heads, n_kv_heads, head_dim,
     }
 
 
+ATTN_AXES = {
+    "wq": ("embed", "heads", "qkv_dim"),
+    "wk": ("embed", "kv_heads", "qkv_dim"),
+    "wv": ("embed", "kv_heads", "qkv_dim"),
+    "wo": ("heads", "qkv_dim", "embed"),
+}
+
+
 def _proj_heads(x, w):
     """einsum("btd,dhk->bthk") as one matmul over the flattened heads."""
     D, H, hd = w.shape
-    return torch.matmul(x, w.reshape(D, H * hd)).reshape(
-        x.shape[:-1] + (H, hd))
+    return dense(x, w.reshape(D, H * hd)).reshape(x.shape[:-1] + (H, hd))
 
 
 def attn_qkv(p, x, positions, theta):
     q = _proj_heads(x, p["wq"])
     k = _proj_heads(x, p["wk"])
     v = _proj_heads(x, p["wv"])
-    return rope(q, positions, theta), rope(k, positions, theta), v
+    q = shard(rope(q, positions, theta), "batch", "seq", "heads", None)
+    k = shard(rope(k, positions, theta), "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
+    return q, k, v
 
 
 def attn_out(p, o):
     """einsum("bthk,hkd->btd") as one matmul."""
     H, hd, D = p["wo"].shape
-    return torch.matmul(o.reshape(o.shape[:-2] + (H * hd,)),
-                        p["wo"].reshape(H * hd, D))
+    y = dense(o.reshape(o.shape[:-2] + (H * hd,)), p["wo"].reshape(H * hd, D))
+    return shard(y, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------- MLP
@@ -276,6 +435,10 @@ def init_mlp(generator, d_model, d_ff, dtype=torch.bfloat16, stack=()):
     }
 
 
+MLP_AXES = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
+
+
 def silu(x):
     """``jax.nn.silu`` as the reference lowers it: x * (1 / (1 +
     exp(-x))), every operation rounded to x's dtype. For bf16 this is what
@@ -289,7 +452,8 @@ def silu(x):
 
 def mlp(p, x):
     h = silu(dense(x, p["w_gate"])) * dense(x, p["w_up"])
-    return dense(h, p["w_down"])
+    h = shard(h, "batch", "seq", "mlp")
+    return shard(dense(h, p["w_down"]), "batch", "seq", "embed")
 
 
 def init_moe(generator, d_model, d_ff, n_experts, n_shared,
@@ -312,6 +476,16 @@ def init_moe(generator, d_model, d_ff, n_experts, n_shared,
     if n_shared:
         p["shared"] = init_mlp(generator, d_model, d_ff * n_shared, dtype,
                                stack)
+    return p
+
+
+def moe_axes(n_shared):
+    p = {"router": ("embed", None),
+         "w_gate": ("experts", "embed", "expert_mlp"),
+         "w_up": ("experts", "embed", "expert_mlp"),
+         "w_down": ("experts", "expert_mlp", "embed")}
+    if n_shared:
+        p["shared"] = dict(MLP_AXES)
     return p
 
 
@@ -358,11 +532,13 @@ def _expert_ffn(p, xe, w_gate, w_up):
     the hidden state rounds to the tokens' dtype before the down product.
     The groups share one product per expert: (E, G * C, D) rows."""
     G, E, C, D = xe.shape
+    xe = shard(xe, None, "experts", None, "embed")
     rows = xe.transpose(0, 1).reshape(E, G * C, D)
     xf = rows.to(torch.float32)
     h = silu(torch.bmm(xf, w_gate)) * torch.bmm(xf, w_up)
     ye = torch.bmm(h.to(xe.dtype), p["w_down"])
-    return ye.reshape(E, G, C, D).transpose(0, 1)
+    return shard(ye.reshape(E, G, C, D).transpose(0, 1), None, "experts",
+                 None, "embed")
 
 
 def moe_ffn(p, x, *, top_k: int, group_size: int = 0,
@@ -393,7 +569,7 @@ def moe_ffn(p, x, *, top_k: int, group_size: int = 0,
         raise ValueError(f"unknown MOE_DISPATCH {MOE_DISPATCH!r}")
     w_gate = p["w_gate"].to(torch.float32)
     w_up = p["w_up"].to(torch.float32)
-    groups = flat.reshape(n_groups, S, D)
+    groups = shard(flat.reshape(n_groups, S, D), None, "batch", "embed")
     gates = torch.softmax(torch.matmul(groups.to(torch.float32), p["router"]),
                           dim=-1)                                # (G,S,E)
     if MOE_DISPATCH == "gather":
@@ -416,4 +592,4 @@ def moe_ffn(p, x, *, top_k: int, group_size: int = 0,
     y = y.reshape(n_groups * S, D)[:N].reshape(B, T, D)
     if "shared" in p:
         y = y + mlp(p["shared"], x)
-    return y
+    return shard(y, "batch", "seq", "embed")

@@ -22,6 +22,7 @@ from typing import Dict
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import place_by_axes, shard
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 
@@ -51,6 +52,21 @@ def init_dec_block(generator, cfg, stack=()) -> Params:
                                   cfg.n_kv_heads, cfg.head_dim, stack=st),
             "norm2": _ones(st, cfg.d_model, dev),
             "ffn": cm.init_mlp(generator, cfg.d_model, cfg.d_ff, stack=st)}
+
+
+ENC_AXES = {"norm1": ("embed",), "attn": dict(cm.ATTN_AXES),
+            "norm2": ("embed",), "ffn": dict(cm.MLP_AXES)}
+DEC_AXES = {"norm1": ("embed",), "attn": dict(cm.ATTN_AXES),
+            "norm_x": ("embed",), "xattn": dict(cm.ATTN_AXES),
+            "norm2": ("embed",), "ffn": dict(cm.MLP_AXES)}
+
+
+def lm_axes(cfg):
+    return {"embed": ("vocab", "embed"),
+            "enc": tfm._stacked(ENC_AXES, 1),
+            "dec": tfm._stacked(DEC_AXES, 1),
+            "enc_norm": ("embed",), "final_norm": ("embed",),
+            "lm_head": ("embed", "vocab")}
 
 
 def init_lm(seed: int, cfg, device="cuda") -> Params:
@@ -83,7 +99,7 @@ def encode(params, cfg, frames):
     """frames: (B, T_enc, D) stub audio embeddings -> the encoder's output
     (B, T_enc, D) bf16. Every block is recomputed in the backward pass, as
     in the reference."""
-    x = frames.to(torch.bfloat16)
+    x = shard(frames.to(torch.bfloat16), "batch", "seq", "embed")
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i in range(cfg.n_layers):
         x = tfm.run_block(torch.is_grad_enabled(), _enc_block,
@@ -140,13 +156,23 @@ def forward(params, cfg, frames, dec_tokens, remat: bool = True):
 def init_cache(cfg, batch: int, max_len: int, enc_len: int, device="cuda"):
     dev = resolve_device(device)
     shape = (cfg.n_dec_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"self": {"k": torch.zeros(shape, dtype=torch.bfloat16,
-                                      device=dev),
-                     "v": torch.zeros(shape, dtype=torch.bfloat16,
-                                      device=dev)},
-            "enc_out": torch.zeros((batch, enc_len, cfg.d_model),
-                                   dtype=torch.bfloat16, device=dev),
-            "cur": 0}
+    cache = {"self": {"k": torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=dev),
+                      "v": torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=dev)},
+             "enc_out": torch.zeros((batch, enc_len, cfg.d_model),
+                                    dtype=torch.bfloat16, device=dev),
+             "cur": 0}
+    return place_by_axes(cache, cache_axes(cfg))
+
+
+def cache_axes(cfg):
+    return {"self": {"k": ("stack", "cache_batch", "cache_seq", "kv_heads",
+                           "cache_hd"),
+                     "v": ("stack", "cache_batch", "cache_seq", "kv_heads",
+                           "cache_hd")},
+            "enc_out": ("cache_batch", "seq", "embed"),
+            "cur": ()}
 
 
 @torch.no_grad()

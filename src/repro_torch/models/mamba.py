@@ -24,10 +24,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import common as cm
 
-# the logical axes of each leaf (the reference's ``mamba_axes()``), for a
-# later mesh; nothing in the port shards yet
+# the logical axes of each leaf (the reference's ``mamba_axes()``)
 MAMBA_AXES = {
     "in_proj": ("embed", "ssm_inner"),
     "conv_w": (None, "ssm_inner"),
@@ -38,6 +38,10 @@ MAMBA_AXES = {
     "D_skip": ("ssm_inner",),
     "out_proj": ("ssm_inner", "embed"),
 }
+
+
+def mamba_axes():
+    return dict(MAMBA_AXES)
 
 
 def init_mamba(generator, cfg, stack=()) -> Dict[str, torch.Tensor]:
@@ -123,7 +127,7 @@ def mamba_fwd(p, cfg, h, return_state: bool = False):
     pad = nch * chunk - T
     di = cfg.ssm_d_inner
 
-    xz = torch.matmul(h, p["in_proj"])
+    xz = shard(cm.dense(h, p["in_proj"]), "batch", "seq", "ssm_inner")
     x, z = xz[..., :di], xz[..., di:]
     x, conv_tail = _causal_conv(p, cfg, x)
     dt, Bm, Cm = _gates(p, cfg, x)
@@ -149,7 +153,8 @@ def mamba_fwd(p, cfg, h, return_state: bool = False):
         hstate = hs[:, -1]
     y = torch.cat(ys, dim=1)[:, :T]
     y = (y * cm.silu(z.to(torch.float32))).to(h.dtype)
-    out = torch.matmul(y, p["out_proj"])
+    y = shard(y, "batch", "seq", "ssm_inner")
+    out = shard(cm.dense(y, p["out_proj"]), "batch", "seq", "embed")
     if return_state:
         return out, {"h": hstate, "conv": conv_tail}
     return out
@@ -159,7 +164,7 @@ def mamba_step(p, cfg, h, state) -> Tuple[torch.Tensor, Dict]:
     """Decode step. h: (B, 1, D); state = {"h": (B, di, N) f32, "conv":
     (B, K-1, di)}. Returns (out (B, 1, D), new state)."""
     di = cfg.ssm_d_inner
-    xz = torch.matmul(h, p["in_proj"])
+    xz = cm.dense(h, p["in_proj"])
     x, z = xz[..., :di], xz[..., di:]
     x, new_conv = _causal_conv(p, cfg, x, init_state=state["conv"])
     dt, Bm, Cm = _gates(p, cfg, x)
@@ -171,5 +176,5 @@ def mamba_step(p, cfg, h, state) -> Tuple[torch.Tensor, Dict]:
     y = torch.einsum("bdn,bn->bd", hs, Cm[:, 0])
     y = y + p["D_skip"] * x0
     y = (y * cm.silu(z[:, 0].to(torch.float32))).to(h.dtype)
-    out = torch.matmul(y[:, None], p["out_proj"])
+    out = cm.dense(y[:, None], p["out_proj"])
     return out, {"h": hs, "conv": new_conv.to(state["conv"].dtype)}

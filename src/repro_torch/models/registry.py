@@ -5,7 +5,8 @@ Port of the reference package's ``models/registry.py`` for every family:
 the LM family (dense, MoE, VLM and hybrid; ``models/transformer.py``), the
 ssm family (the xLSTM, ``models/xlstm.py``) and the audio family (the
 encoder-decoder, ``models/encdec.py``), with ``input_specs`` and
-``make_dummy_batch``. The modality frontends (VLM patches, audio frames)
+``make_dummy_batch``, and the logical-axes trees that place each on a mesh
+(``axes``, ``cache_axes``, ``batch_axes``). The modality frontends (VLM patches, audio frames)
 are stubs, as there: the batch carries precomputed embeddings.
 """
 from __future__ import annotations
@@ -17,6 +18,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import from_local, is_dtensor, \
+    reduce_partial, split_over
 from repro_torch.models import encdec, transformer, xlstm
 
 
@@ -26,9 +29,41 @@ def cross_entropy(logits, labels, ignore: int = -1):
     lmax = torch.max(logits, dim=-1, keepdim=True).values.detach()
     shifted = (logits - lmax).to(torch.float32)
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
-    gold = torch.gather(shifted, -1, labels.clamp_min(0)[..., None].long())[..., 0]
+    idx = labels.clamp_min(0).long()
+    if split_over(shifted, -1):
+        gold = _split_gold(shifted, idx)
+    else:
+        gold = torch.gather(shifted, -1, idx[..., None])[..., 0]
     valid = (labels != ignore).to(torch.float32)
     return torch.sum((lse - gold) * valid) / torch.clamp(valid.sum(), min=1.0)
+
+
+def _split_gold(shifted, idx):
+    """``gather(shifted, -1, idx)`` of a DTensor split over its last (vocab)
+    dim: each rank reads the labels in its own columns, zero elsewhere, and
+    the one nonzero term is summed across the vocab shards (an all-reduce
+    of (B, T) rows; the logits are not gathered)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh, last = shifted.device_mesh, shifted.ndim - 1
+    vocab = [isinstance(p, Shard) and p.dim == last
+             for p in shifted.placements]
+    # the labels as the logits' rows are placed, whole over the vocab split
+    lpl = [Replicate() if v else p for p, v in zip(shifted.placements,
+                                                    vocab)]
+    local = shifted.to_local()
+    lab = idx.redistribute(mesh, lpl).to_local() if is_dtensor(idx) \
+        else idx
+    (_, off) = compute_local_shape_and_global_offset(
+        shifted.shape, mesh, shifted.placements)
+    j = lab - off[last]
+    inside = (j >= 0) & (j < local.shape[-1])
+    g = torch.gather(local, -1, j.clamp(0, local.shape[-1] - 1)[..., None])
+    g = torch.where(inside, g[..., 0], torch.zeros_like(g[..., 0]))
+    gpl = [Partial() if v else p for p, v in zip(lpl, vocab)]
+    return reduce_partial(from_local(g, mesh, gpl, shifted.shape[:-1]))
 
 
 @dataclass(frozen=True)
@@ -36,9 +71,11 @@ class Model:
     cfg: ArchConfig
     init: Callable[[int], Any]                          # seed -> params
     loss: Callable[[Any, Dict[str, Any]], Any]          # (params, batch) -> scalar
+    axes: Optional[Callable] = None                     # () -> params' logical axes
     prefill: Optional[Callable] = None                  # (params, batch) -> (logits, cache)
     decode: Optional[Callable] = None                   # (params, cache, batch) -> (logits, cache)
     init_cache: Optional[Callable] = None               # (batch, max_len) -> cache
+    cache_axes: Optional[Callable] = None               # () -> cache's logical axes
 
 
 def _lm_model(cfg: ArchConfig, device) -> Model:
@@ -59,11 +96,13 @@ def _lm_model(cfg: ArchConfig, device) -> Model:
     return Model(
         cfg=cfg,
         init=lambda seed: transformer.init_lm(seed, cfg, device),
+        axes=lambda: transformer.lm_axes(cfg),
         loss=loss,
         prefill=prefill_fn,
         decode=decode_fn,
         init_cache=lambda batch, max_len: transformer.init_cache(
             cfg, batch, max_len, device),
+        cache_axes=lambda: transformer.cache_axes(cfg),
     )
 
 
@@ -75,6 +114,7 @@ def _xlstm_model(cfg: ArchConfig, device) -> Model:
     return Model(
         cfg=cfg,
         init=lambda seed: xlstm.init_lm(seed, cfg, device),
+        axes=lambda: xlstm.lm_axes(cfg),
         loss=loss,
         prefill=lambda params, batch: xlstm.prefill(params, cfg,
                                                     batch["tokens"]),
@@ -82,6 +122,7 @@ def _xlstm_model(cfg: ArchConfig, device) -> Model:
             params, cfg, cache, batch["token"]),
         init_cache=lambda batch, max_len: xlstm.init_state(
             cfg, batch, max_len, device),
+        cache_axes=lambda: xlstm.state_axes(cfg),
     )
 
 
@@ -106,12 +147,14 @@ def _encdec_model(cfg: ArchConfig, device) -> Model:
     return Model(
         cfg=cfg,
         init=lambda seed: encdec.init_lm(seed, cfg, device),
+        axes=lambda: encdec.lm_axes(cfg),
         loss=loss,
         prefill=prefill_fn,
         decode=lambda params, cache, batch: encdec.decode_step(
             params, cfg, cache, batch["token"]),
         init_cache=lambda batch, max_len: encdec.init_cache(
             cfg, batch, max_len, max_len, device),
+        cache_axes=lambda: encdec.cache_axes(cfg),
     )
 
 
@@ -156,6 +199,14 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
     if shape.kind == "prefill":
         return {"tokens": spec((B, S))}
     return {"token": spec((B, 1))}
+
+
+def batch_axes(cfg: ArchConfig, shape: ShapeConfig):
+    """Logical sharding axes of each ``input_specs`` leaf (``max_len``:
+    None)."""
+    return {k: None if k == "max_len"
+            else ("batch",) + (None,) * (len(v.shape) - 1)
+            for k, v in input_specs(cfg, shape).items()}
 
 
 def make_dummy_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,

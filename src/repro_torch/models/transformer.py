@@ -12,7 +12,11 @@ keeps a stacked KV cache, (L, B, max_len, KV, hd), in ``KV_CACHE_DTYPE``
 (bf16, or int8 at the fixed scale ``KV_CACHE_SCALE``), which
 ``decode_step`` updates in place (the reference returns a new one).
 ``head_fn(hidden) -> logits`` replaces the dense output head, e.g. with
-the quantized head of ``serving/lm.py``.
+the quantized head of ``serving/lm.py``. ``lm_axes`` and ``cache_axes``
+are the reference's logical-axes trees of the params and the cache: under
+an active mesh (``distributed/sharding.py::axis_rules``) ``init_cache``
+places the cache on them, and params placed on ``lm_axes`` run as
+DTensors through the same code.
 
 The hybrid (Jamba) family groups its layers by ``cfg.attn_period`` = P:
 each of the G = L / P groups runs P - 1 Mamba blocks (``models/mamba.py``)
@@ -34,6 +38,8 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import from_local, is_dtensor, \
+    place_by_axes, shard, split_over
 from repro_torch.models import common as cm
 from repro_torch.models import mamba as mb
 
@@ -67,6 +73,30 @@ def _cache_store(val, cache_dtype):
     return val.to(cache_dtype)
 
 
+def cache_write(cache, start: int, val) -> None:
+    """``cache[:, start:start + T] = val`` (cache (B, S, ...), val (B, T,
+    ...)). A cache whose sequence is split over a mesh axis (the decode
+    cache rules) is written on the ranks that hold those rows, each into
+    its local shard: the value is made whole along the sequence there,
+    and no rank gathers the cache."""
+    T = val.shape[1]
+    if not split_over(cache, 1):
+        cache[:, start:start + T] = val
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+          for p in cache.placements]
+    shape, off = compute_local_shape_and_global_offset(
+        cache.shape, cache.device_mesh, cache.placements)
+    lo, hi = max(start, off[1]), min(start + T, off[1] + shape[1])
+    v = val.redistribute(cache.device_mesh, pl).to_local()
+    if lo < hi:
+        cache.to_local()[:, lo - off[1]:hi - off[1]] = v[:, lo - start:
+                                                          hi - start]
+
+
 def _cache_load(val, like_dtype):
     if val.dtype == torch.int8:
         return (val.to(torch.float32) * KV_CACHE_SCALE).to(like_dtype)
@@ -96,6 +126,17 @@ def init_block(generator, cfg: ArchConfig, layers, kind: str = "attn"
                                cfg.n_experts, cfg.n_shared_experts, stack=st)
     else:
         p["ffn"] = cm.init_mlp(generator, cfg.d_model, cfg.d_ff, stack=st)
+    return p
+
+
+def block_axes(cfg: ArchConfig, kind: str):
+    p = {"norm1": ("embed",), "norm2": ("embed",)}
+    if kind == "attn":
+        p["attn"] = dict(cm.ATTN_AXES)
+    else:
+        p["mamba"] = mb.mamba_axes()
+    p["ffn"] = (cm.moe_axes(cfg.n_shared_experts) if cfg.n_experts
+                else dict(cm.MLP_AXES))
     return p
 
 
@@ -202,8 +243,8 @@ def attn_block_decode(p, cfg: ArchConfig, x, cache_k, cache_v, cur: int):
     h = cm.rms_norm(x, p["norm1"], cfg.norm_eps)
     pos = torch.full((x.shape[0], 1), cur, dtype=torch.int32, device=x.device)
     q, k, v = cm.attn_qkv(p["attn"], h, pos, cfg.rope_theta)
-    cache_k[:, cur:cur + 1] = _cache_store(k, cache_k.dtype)
-    cache_v[:, cur:cur + 1] = _cache_store(v, cache_v.dtype)
+    cache_write(cache_k, cur, _cache_store(k, cache_k.dtype))
+    cache_write(cache_v, cur, _cache_store(v, cache_v.dtype))
     o = cm.gqa_attention(q, _cache_load(cache_k, q.dtype),
                          _cache_load(cache_v, q.dtype), q_offset=cur,
                          kv_valid=cur + 1, chunk_q=1 << 30, chunk_k=1 << 30)
@@ -240,6 +281,26 @@ def init_lm(seed: int, cfg: ArchConfig, device="cuda") -> Params:
     return p
 
 
+def _stacked(axes_tree, extra=1):
+    """Each leaf's axes behind ``extra`` leading "stack" axes."""
+    if isinstance(axes_tree, dict):
+        return {k: _stacked(v, extra) for k, v in axes_tree.items()}
+    return ("stack",) * extra + axes_tree
+
+
+def lm_axes(cfg: ArchConfig):
+    ax: Dict[str, Any] = {"embed": ("vocab", "embed"),
+                          "final_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = ("embed", "vocab")
+    if cfg.family == "hybrid":
+        ax["mamba_blocks"] = _stacked(block_axes(cfg, "mamba"), 2)
+        ax["attn_blocks"] = _stacked(block_axes(cfg, "attn"), 1)
+    else:
+        ax["blocks"] = _stacked(block_axes(cfg, "attn"), 1)
+    return ax
+
+
 def params_from_numpy(tree, device="cuda") -> Params:
     """The reference's param pytree as nested dicts of numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)``; bf16 leaves are
@@ -254,10 +315,49 @@ def params_to_numpy(tree) -> Dict:
 
 
 def embed_tokens(p, cfg: ArchConfig, tokens, extra_embeds=None):
-    x = p["embed"][tokens].to(torch.bfloat16)
+    """The tokens' rows of the embedding (bf16). A table split over its
+    vocabulary is read shard by shard (``_split_embedding``)."""
+    emb = p["embed"]
+    if split_over(emb, 0):
+        x = _split_embedding(emb, tokens).to(torch.bfloat16)
+    else:
+        x = emb[tokens].to(torch.bfloat16)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-    return x
+    return shard(x, "batch", "seq", "embed")
+
+
+def _split_embedding(emb, tokens):
+    """``emb[tokens]`` of a DTensor table split over its rows (the
+    vocabulary): each rank reads the tokens in its own rows, zero
+    elsewhere, and the partial rows are summed across the vocab shards
+    (a pending ``Partial`` sum, reduced where the next ``shard()`` places
+    the activation). Written out because DTensor's own rule for it
+    (a masked partial) has no backward into a plain partial sum."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = emb.device_mesh
+    vocab = [isinstance(p, Shard) and p.dim == 0 and n > 1
+             for p, n in zip(emb.placements, mesh.shape)]
+    emb = emb.redistribute(mesh, [Shard(0) if v else Replicate()
+                                  for v in vocab])
+    local = emb.to_local()
+    _, off = compute_local_shape_and_global_offset(emb.shape, mesh,
+                                                   emb.placements)
+    if is_dtensor(tokens):
+        tpl = [Replicate() if v else p for p, v in zip(tokens.placements,
+                                                       vocab)]
+        tok = tokens.redistribute(mesh, tpl).to_local()
+    else:
+        tpl, tok = [Replicate()] * mesh.ndim, tokens
+    j = tok.long() - off[0]
+    inside = (j >= 0) & (j < local.shape[0])
+    x = torch.nn.functional.embedding(j.clamp(0, local.shape[0] - 1), local)
+    x = x * inside[..., None].to(x.dtype)
+    pl = [Partial() if v else p for p, v in zip(tpl, vocab)]
+    return from_local(x, mesh, pl, tuple(tokens.shape) + (emb.shape[1],))
 
 
 def logits_head_weight(p, cfg: ArchConfig):
@@ -269,7 +369,7 @@ def logits_head(p, cfg: ArchConfig, x):
     """The dense head: f32 logits of the bf16 hidden state, cast to bf16."""
     w = logits_head_weight(p, cfg)
     logits = torch.matmul(x.to(torch.float32), w.to(torch.float32))
-    return logits.to(torch.bfloat16)
+    return shard(logits.to(torch.bfloat16), "batch", "seq", "vocab")
 
 
 def forward(params, cfg: ArchConfig, tokens, extra_embeds=None,
@@ -320,7 +420,22 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
                              dtype=torch.float32, device=dev),
             "conv": torch.zeros((G, P - 1, batch, cfg.ssm_d_conv - 1, di),
                                 dtype=torch.bfloat16, device=dev)}
-    return cache
+    return place_by_axes(cache, cache_axes(cfg))
+
+
+def cache_axes(cfg: ArchConfig):
+    kvax = {"k": ("stack", "cache_batch", "cache_seq", "kv_heads",
+                  "cache_hd"),
+            "v": ("stack", "cache_batch", "cache_seq", "kv_heads",
+                  "cache_hd")}
+    if cfg.family == "hybrid":
+        return {"attn": kvax,
+                "ssm": {"h": ("stack", "stack", "cache_batch", "ssm_inner",
+                              None),
+                        "conv": ("stack", "stack", "cache_batch", None,
+                                 "ssm_inner")},
+                "cur": ()}
+    return {"attn": kvax, "cur": ()}
 
 
 @torch.no_grad()
@@ -374,7 +489,7 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: Optional[int] = None,
         x = attn_block_fwd(bp, cfg, x, positions, kv)
         for name in ("k", "v"):
             c = cache["attn"][name]
-            c[i, :, :T] = _cache_store(kv[name], c.dtype)
+            cache_write(c[i], 0, _cache_store(kv[name], c.dtype))
         return x
 
     if cfg.family == "hybrid":

@@ -20,6 +20,10 @@ population lanes that read quantized-weight banks
 (``core/xlstm_target.py``). Inputs may carry any leading axes before
 (T, D); the recurrences fold them into one batch axis.
 
+``lm_axes`` and ``state_axes`` are the reference's logical-axes trees of
+the params and the recurrent state (``distributed/sharding.py``);
+``init_state`` places the state on them under an active mesh.
+
 Serving: ``prefill`` runs the prompt and returns the recurrent state of
 every pair (``init_state``'s layout, stacked over the G pairs);
 ``decode_step`` advances it by one token with ``mlstm_step`` and
@@ -27,6 +31,7 @@ every pair (``init_state``'s layout, stacked over the G pairs);
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional
 
@@ -35,6 +40,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import elementwise, on_row_shards, \
+    place_by_axes, whole_for_groups
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
 
@@ -103,30 +110,21 @@ def _mlstm_qkvg(p, cfg: ArchConfig, x, mm: Optional[Mm] = None):
     H = cfg.n_heads
     dh = cfg.ssm_d_inner // H
     heads = x.shape[:-1] + (H, dh)
-    q, k, v = (mm(key, x).reshape(heads) for key in ("wq", "wk", "wv"))
+    q, k, v = (whole_for_groups(mm(key, x), H).reshape(heads)
+               for key in ("wq", "wk", "wv"))
     xf = x.to(torch.float32)
     logi = _gate_product(xf, p["wi"])
-    logf = F.logsigmoid(_gate_product(xf, p["wf"]) + p["fbias"])
+    logf = elementwise(F.logsigmoid,
+                       _gate_product(xf, p["wf"]) + p["fbias"])
     return q, k, v, logi, logf
 
 
-def mlstm_fwd(p, cfg: ArchConfig, x, chunk: int = 128,
-              return_state: bool = False, mm: Optional[Mm] = None):
-    """Chunkwise-parallel mLSTM. x: (..., T, D) -> (..., T, D).
-
-    The reference scans over chunks from a zero state. Two of its terms
-    are exactly zero here and are skipped: the inter-chunk read-out of the
-    first chunk (its state is all zeros; adding 0.0 changes no value), and
-    the state update after the last chunk when no state is returned (at
-    the search's full width that state is 4 GB a layer)."""
-    mm = mm or dense_mm(p)
-    lead, T = x.shape[:-2], x.shape[-2]
-    H = cfg.n_heads
-    dh = cfg.ssm_d_inner // H
-    q, k, v, logi, logf = _mlstm_qkvg(p, cfg, x, mm)
-    B = math.prod(lead)
-    q, k, v = (t.reshape(B, T, H, dh).to(torch.float32) for t in (q, k, v))
-    logi, logf = logi.reshape(B, T, H), logf.reshape(B, T, H)
+def _mlstm_chunks(q, k, v, logi, logf, chunk: int, stop_early: bool):
+    """The chunk loop of ``mlstm_fwd`` on (B, T, H, dh) f32 q, k, v and
+    (B, T, H) gate logits: returns the read-out (B, T', H, dh) (T' the
+    padded length) and the state (S, n, m) after the last chunk (S and n
+    None when ``stop_early`` skips the last update, or on one chunk)."""
+    B, T, H, dh = q.shape
     chunk = min(chunk, T)
     nch = -(-T // chunk)
     pad = nch * chunk - T
@@ -135,10 +133,10 @@ def mlstm_fwd(p, cfg: ArchConfig, x, chunk: int = 128,
         logi = F.pad(logi, (0, 0, 0, pad), value=-1e30)
         logf = F.pad(logf, (0, 0, 0, pad))
     scale = 1.0 / math.sqrt(dh)
-    tq = torch.arange(chunk, device=x.device)
+    tq = torch.arange(chunk, device=q.device)
     causal = (tq[:, None] >= tq[None, :])[None, :, :, None]   # (1,c,c,1)
     S = n = None                      # the zero state
-    m = torch.zeros((B, H), dtype=torch.float32, device=x.device)
+    m = torch.zeros((B, H), dtype=torch.float32, device=q.device)
     ys = []
     for c in range(nch):
         sl = slice(c * chunk, (c + 1) * chunk)
@@ -163,7 +161,7 @@ def mlstm_fwd(p, cfg: ArchConfig, x, chunk: int = 128,
             den = den + torch.einsum("bthd,bhd,bth->bth", qs, n, w_inter)
         denom = torch.maximum(torch.abs(den), torch.exp(-m_new_t))[..., None]
         ys.append(num / denom)                                  # (B,c,H,dh)
-        if c == nch - 1 and not return_state:
+        if c == nch - 1 and stop_early:
             break
         dec = ik + (g_last[:, None] - g)
         m_next = torch.maximum(g_last + m, dec.max(dim=1).values)
@@ -177,7 +175,30 @@ def mlstm_fwd(p, cfg: ArchConfig, x, chunk: int = 128,
             S = S * keep[..., None, None] + S_up
             n = n * keep[..., None] + n_up
         m = m_next
-    y = torch.cat(ys, dim=1)[:, :T].reshape(lead + (T, H * dh))
+    return torch.cat(ys, dim=1), S, n, m
+
+
+def mlstm_fwd(p, cfg: ArchConfig, x, chunk: int = 128,
+              return_state: bool = False, mm: Optional[Mm] = None):
+    """Chunkwise-parallel mLSTM. x: (..., T, D) -> (..., T, D).
+
+    The reference scans over chunks from a zero state. Two of its terms
+    are exactly zero here and are skipped: the inter-chunk read-out of the
+    first chunk (its state is all zeros; adding 0.0 changes no value), and
+    the state update after the last chunk when no state is returned (at
+    the search's full width that state is 4 GB a layer)."""
+    mm = mm or dense_mm(p)
+    lead, T = x.shape[:-2], x.shape[-2]
+    H = cfg.n_heads
+    dh = cfg.ssm_d_inner // H
+    q, k, v, logi, logf = _mlstm_qkvg(p, cfg, x, mm)
+    B = math.prod(lead)
+    q, k, v = (t.reshape(B, T, H, dh).to(torch.float32) for t in (q, k, v))
+    logi, logf = logi.reshape(B, T, H), logf.reshape(B, T, H)
+    ys, S, n, m = on_row_shards(functools.partial(
+        _mlstm_chunks, chunk=chunk, stop_early=not return_state), q, k, v,
+        logi, logf)
+    y = whole_for_groups(ys[:, :T].reshape(lead + (T, H * dh)), H)
     z = cm.silu(mm("wz", x).to(torch.float32))
     y = (y * z).to(x.dtype)
     out = mm("wo", y)
@@ -245,10 +266,10 @@ def _slstm_cell(p, cfg: ArchConfig, pre, state,
     B, H, dh = h.shape
     r = (rec(h) if rec is not None
          else torch.einsum("bhd,hde->bhe", h, p["r"]))         # (B,H,4dh)
-    r = r.reshape(B, H, 4, dh).transpose(2, 3)
+    r = whole_for_groups(r, 4).reshape(B, H, 4, dh).transpose(2, 3)
     g = pre + r
     logi = g[..., 0]
-    logf = F.logsigmoid(g[..., 1])
+    logf = elementwise(F.logsigmoid, g[..., 1])
     z = torch.tanh(g[..., 2])
     o = torch.sigmoid(g[..., 3])
     m_new = torch.maximum(logf + m, logi)
@@ -279,13 +300,15 @@ def slstm_fwd(p, cfg: ArchConfig, x, return_state: bool = False,
     di = cfg.ssm_d_inner
     dh = di // H
     B = math.prod(lead)
-    pre = (mm("wx", x, f32=True) + p["bias"]).reshape(B, T, H, dh, 4)
+    pre = whole_for_groups(mm("wx", x, f32=True) + p["bias"], H).reshape(
+        B, T, H, dh, 4)
     state = slstm_init_state(cfg, B, x.device)
     hs = []
     for t in range(T):
         state = _slstm_cell(p, cfg, pre[:, t], state, rec)
         hs.append(state["h"])
-    y = torch.stack(hs, dim=1).reshape(lead + (T, di)).to(x.dtype)
+    y = whole_for_groups(torch.stack(hs, dim=1).reshape(lead + (T, di)),
+                         H).to(x.dtype)
     out = mm("wo", y)
     if return_state:
         return out, state
@@ -299,13 +322,24 @@ def slstm_step(p, cfg: ArchConfig, x, state):
     B = x.shape[0]
     H = cfg.n_heads
     di = cfg.ssm_d_inner
-    pre = (mm("wx", x[:, 0], f32=True) + p["bias"]).reshape(B, H, di // H, 4)
+    pre = whole_for_groups(mm("wx", x[:, 0], f32=True) + p["bias"],
+                           H).reshape(B, H, di // H, 4)
     new = _slstm_cell(p, cfg, pre, state)
     y = new["h"].reshape(B, 1, di).to(x.dtype)
     return mm("wo", y), new
 
 
 # ------------------------------------------------------------------ LM
+
+MLSTM_AXES = {"wq": ("embed", "ssm_inner"), "wk": ("embed", "ssm_inner"),
+              "wv": ("embed", "ssm_inner"), "wi": ("embed", "heads"),
+              "wf": ("embed", "heads"), "fbias": ("heads",),
+              "wz": ("embed", "ssm_inner"), "wo": ("ssm_inner", "embed")}
+SLSTM_AXES = {"wx": ("embed", "ssm_inner"), "r": ("heads", None, None),
+              "bias": ("ssm_inner",), "wo": ("ssm_inner", "embed")}
+PAIR_AXES = {"norm_m": ("embed",), "mlstm": MLSTM_AXES,
+             "norm_s": ("embed",), "slstm": SLSTM_AXES}
+
 
 def init_block_pair(generator: torch.Generator, cfg: ArchConfig, stack=()):
     st = tuple(stack)
@@ -338,6 +372,13 @@ def init_lm(seed: int, cfg: ArchConfig, device="cuda") -> Params:
 def pair(params: Params, g: int) -> Params:
     """The g-th (mLSTM, sLSTM) pair of the stacked ``pairs`` tree."""
     return cm.tree_map(lambda a: a[g], params["pairs"])
+
+
+def lm_axes(cfg: ArchConfig):
+    return {"embed": ("vocab", "embed"),
+            "pairs": tfm._stacked(PAIR_AXES, 1),
+            "final_norm": ("embed",),
+            "lm_head": ("embed", "vocab")}
 
 
 def params_from_numpy(tree, device="cuda") -> Params:
@@ -405,10 +446,20 @@ def init_state(cfg: ArchConfig, batch: int, max_len: int = 0,
 
     def z(*s):
         return torch.zeros((G, batch) + s, dtype=torch.float32, device=dev)
-    return {"mlstm": {"S": z(H, dh, dh), "n": z(H, dh), "m": z(H)},
-            "slstm": {"c": z(H, dh), "n": z(H, dh), "h": z(H, dh),
-                      "m": z(H, dh)},
-            "cur": 0}
+    state = {"mlstm": {"S": z(H, dh, dh), "n": z(H, dh), "m": z(H)},
+             "slstm": {"c": z(H, dh), "n": z(H, dh), "h": z(H, dh),
+                       "m": z(H, dh)},
+             "cur": 0}
+    return place_by_axes(state, state_axes(cfg))
+
+
+def state_axes(cfg: ArchConfig):
+    return {"mlstm": {"S": ("stack", "cache_batch", "heads", None, None),
+                      "n": ("stack", "cache_batch", "heads", None),
+                      "m": ("stack", "cache_batch", "heads")},
+            "slstm": {k: ("stack", "cache_batch", "heads", None)
+                      for k in ("c", "n", "h", "m")},
+            "cur": ()}
 
 
 @torch.no_grad()

@@ -43,6 +43,18 @@ what it dispatches, on an executed run (CPU or card) or on meta tensors
   microbatch loop's gradient accumulator), which is the steady state of
   every later trip.
 
+- Collectives (a step on DTensors, ``distributed/sharding.py``): DTensor
+  runs each op on the local shards, which are what is counted (per-device
+  numbers, as the reference's post-partitioning HLO), and moves data with
+  the functional collectives (``_c10d_functional.*``). Each is priced
+  with the reference's ring model (``hlo_analysis.py:14-16``) on its
+  group of n ranks: all-gather the local input times (n-1), reduce-scatter
+  and all-to-all the input times (n-1)/n, all-reduce the input times
+  2(n-1)/n, broadcast the input once; into ``ici_bytes``,
+  ``collective_bytes_by_type`` and ``n_collectives`` (they move no HBM
+  bytes here). DTensor's own metadata propagation (the global-shape ops it
+  runs under a fake-tensor mode) is not counted.
+
 ``top_contributors(fn, *args)`` lists the aten ops and kernels by FLOPs and
 by bytes. A count reads no tensor's values, so meta tensors go through the
 whole step; an op that needs data (``.item()``) raises on meta.
@@ -57,6 +69,8 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.distributed.sharding import dtensor_type
 
 aten = torch.ops.aten
 
@@ -79,6 +93,25 @@ _SCRATCH_IN = {aten.log_sigmoid_backward.default: 2}
 
 _ACTIVE: List["Counter"] = []
 
+# the functional collectives' ring-model factor of the input bytes on n
+# ranks, by the reference's type names
+_RING = {"all_reduce": ("all-reduce", lambda n: 2 * (n - 1) / n),
+         "all_gather_into_tensor": ("all-gather", lambda n: n - 1),
+         "reduce_scatter_tensor": ("reduce-scatter", lambda n: (n - 1) / n),
+         "all_to_all_single": ("all-to-all", lambda n: (n - 1) / n),
+         "broadcast": ("broadcast", lambda n: 1.0)}
+_FAKE_KEY = torch._C._TorchDispatchModeKey.FAKE
+
+
+
+
+def _group_size(args) -> int:
+    """The rank count of a functional collective's group (its last string
+    argument names it)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    name = [a for a in args if isinstance(a, str)][-1]
+    return _resolve_process_group(name).size()
+
 
 @dataclass
 class RooflineCounts:
@@ -89,10 +122,16 @@ class RooflineCounts:
     collective_bytes_by_type: Dict[str, float] = field(default_factory=dict)
     n_collectives: int = 0
     flops_by_dtype: Dict[str, float] = field(default_factory=dict)
+    # the collective bytes split by "<type>/<dtype>" (e.g. all-reduce/
+    # bfloat16): what --bf16-partials moves
+    collective_bytes_by_dtype: Dict[str, float] = field(default_factory=dict)
     elementwise_flops: float = 0.0
     min_hbm_bytes: float = 0.0
     launches: Dict[str, float] = field(default_factory=dict)
     argument_bytes: int = 0
+    # of argument_bytes, the older storages the step read without being
+    # handed them (what it closes over: a cached constant table)
+    closure_bytes: int = 0
     temp_bytes: int = 0
     output_bytes: int = 0
     alias_bytes: int = 0          # written in place into older storages
@@ -126,9 +165,9 @@ def _view_key(t: torch.Tensor):
 
 def _tensors(obj):
     """The tensors in a (nested) tuple / list / dict of an op's args or a
-    step's result."""
+    step's result; a DTensor's local shard."""
     if isinstance(obj, torch.Tensor):
-        yield obj
+        yield obj._local_tensor if isinstance(obj, dtensor_type()) else obj
     elif isinstance(obj, (tuple, list)):
         for x in obj:
             yield from _tensors(x)
@@ -225,8 +264,7 @@ class Counter(TorchDispatchMode):
         self._writes: Dict[int, Dict] = {}
         self._tombs = itertools.count()          # keys of freed older storages
         self._meta_cache: Dict = {}
-        for t in _tensors(arguments):
-            self._note_pre(t)
+        self._declared = {self._note_pre(t) for t in _tensors(arguments)}
 
     # ---------------------------------------------------------- storages
     def _note_pre(self, t: torch.Tensor) -> Optional[int]:
@@ -264,6 +302,8 @@ class Counter(TorchDispatchMode):
         if self._open and key in self._pre:
             tomb = ("freed", next(self._tombs))
             self._pre[tomb] = self._pre.pop(key)
+            if key in self._declared:
+                self._declared.add(tomb)
             for book in (self._reads, self._writes):
                 if key in book:
                     book[tomb] = book.pop(key)
@@ -335,8 +375,33 @@ class Counter(TorchDispatchMode):
                      for shape, stride, dtype in outs)
         return made[0] if single else made
 
+    def _collective(self, func, args) -> None:
+        kind, factor = _RING[func.overloadpacket.__name__]
+        n = _group_size(args)
+        b = _distinct_bytes(args[0]) * factor(n) * self._mult if n > 1 else 0
+        c = self.counts
+        c.ici_bytes += b
+        c.collective_bytes_by_type[kind] = \
+            c.collective_bytes_by_type.get(kind, 0.0) + b
+        key = f"{kind}/{str(args[0].dtype).replace('torch.', '')}"
+        c.collective_bytes_by_dtype[key] = \
+            c.collective_bytes_by_dtype.get(key, 0.0) + b
+        c.n_collectives += self._mult
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if torch._C._get_dispatch_mode(_FAKE_KEY) is not None:
+            return func(*args, **kwargs)     # DTensor's metadata propagation
+        dt = dtensor_type()
+        if any(issubclass(t, dt) for t in types):
+            return NotImplemented            # counted on the local shards
+        if func.namespace == "_c10d_functional":
+            out = func(*args, **kwargs)
+            if func.overloadpacket.__name__ in _RING and not self._suppress:
+                self._collective(func, args)
+            for t in _flat((out,), []):
+                self._track(t)
+            return out
         info = _op_info(func)
         ts = _flat(args, [])
         if kwargs:
@@ -404,6 +469,8 @@ class Counter(TorchDispatchMode):
                 out_keys[st._cdata] = st.nbytes()
         c.output_bytes = sum(out_keys.values())
         c.argument_bytes = sum(self._pre.values())
+        c.closure_bytes = sum(n for key, n in self._pre.items()
+                              if key not in self._declared)
         c.temp_bytes = self._peak
         touched = [sum(min(self._pre[key], sum(views.values()))
                        for key, views in book.items())

@@ -7,7 +7,9 @@ card's peaks in place of the TPU's (the reference's
   compute term    = sum over dtypes of FLOPs / that dtype's peak, plus the
                     kernels' elementwise FLOPs at the f32 CUDA-core rate
   memory term     = HBM bytes of the eager stream / HBM bandwidth
-  collective term = 0 (one card: no interconnect)
+  collective term = the ring-model collective bytes a device sends
+                    (``counter.py``) / its NVLink bandwidth one way; 0 on
+                    one card
 
 ``floor_s = max(compute_s, min_hbm_bytes / H100_HBM_BYTES_S)`` is the bound
 no implementation beats (each input read once, each output written once),
@@ -29,8 +31,13 @@ H100_FP32_FLOP_S = 67e12
 # NVIDIA H100 SXM5 data sheet: BF16 tensor core 989.4 TFLOPS dense (the
 # sheet's 1,979 is with 2:4 sparsity)
 H100_BF16_FLOP_S = 989.4e12
-# one card: the collective term is zero (no NVLink traffic is counted)
-H100_ICI_BYTES_S = 0.0
+# NVIDIA H100 SXM5 data sheet: NVLink 900 GB/s a card (18 links of 4th
+# generation NVLink, both directions together); a ring sends each device's
+# bytes one way, so the collective term prices them at half of it
+H100_ICI_BYTES_S = 900e9 / 2
+# an HGX H100 board joins 8 cards in one NVLink domain (NVSwitch); wider
+# groups cross the network between boards, which is slower than NVLink
+NVLINK_DOMAIN = 8
 H100_HBM_CAPACITY_BYTES = 80e9          # H100 80GB HBM3
 
 # the peak that prices a product of each operand dtype
@@ -64,6 +71,7 @@ class RooflineReport:
     ici_bytes: float
     collective_bytes_by_type: Dict[str, float]
     n_collectives: int
+    collective_bytes_by_dtype: Dict[str, float] = field(default_factory=dict)
     # terms (seconds)
     compute_s: float = 0.0
     memory_s: float = 0.0
@@ -90,14 +98,16 @@ class RooflineReport:
     flops_by_dtype: Dict[str, float] = field(default_factory=dict)
     elementwise_flops: float = 0.0
     launches: Dict[str, float] = field(default_factory=dict)
+    collective_note: str = ""
 
     @classmethod
     def build(cls, *, arch: str, shape: str, mesh: str, n_devices: int,
-              counts: RooflineCounts, model_flops: float
+              counts: RooflineCounts, model_flops: float,
+              group_sizes: Optional[Dict[str, int]] = None
               ) -> "RooflineReport":
         compute_s = compute_seconds(counts)
         memory_s = counts.hbm_bytes / H100_HBM_BYTES_S
-        collective_s = 0.0
+        collective_s = counts.ici_bytes / H100_ICI_BYTES_S
         terms = {"compute": compute_s, "memory": memory_s,
                  "collective": collective_s}
         bottleneck = max(terms, key=terms.get)
@@ -109,6 +119,7 @@ class RooflineReport:
             ici_bytes=counts.ici_bytes,
             collective_bytes_by_type=dict(counts.collective_bytes_by_type),
             n_collectives=counts.n_collectives,
+            collective_bytes_by_dtype=dict(counts.collective_bytes_by_dtype),
             compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
             bottleneck=bottleneck,
             model_flops=model_flops, hlo_total_flops=total,
@@ -122,7 +133,8 @@ class RooflineReport:
             floor_s=floor_seconds(counts),
             flops_by_dtype=dict(counts.flops_by_dtype),
             elementwise_flops=counts.elementwise_flops,
-            launches=dict(counts.launches))
+            launches=dict(counts.launches),
+            collective_note=collective_note(group_sizes))
 
     def to_json(self) -> str:
         return json.dumps(asdict(self), indent=1)
@@ -133,6 +145,23 @@ class RooflineReport:
                 f"I={self.collective_s*1e3:9.3f}ms -> {self.bottleneck:10s} "
                 f"floor={self.floor_s*1e3:9.3f}ms "
                 f"frac={self.roofline_fraction:5.2f} useful={self.useful_ratio:5.2f}")
+
+
+def collective_note(group_sizes: Optional[Dict[str, int]]) -> str:
+    """What the collective term assumes, for a mesh's axis sizes: every
+    group is priced at NVLink's rate, which holds only within one 8-card
+    NVLink domain."""
+    if not group_sizes:
+        return "one card: no collectives"
+    wide = {a: n for a, n in group_sizes.items() if n > NVLINK_DOMAIN}
+    note = (f"priced at NVLink {H100_ICI_BYTES_S / 1e9:.0f} GB/s one way "
+            f"a card")
+    if wide:
+        note += ("; axes " + ", ".join(f"{a}={n}" for a, n in wide.items())
+                 + f" are wider than one {NVLINK_DOMAIN}-card NVLink domain,"
+                 " so their collectives cross the network between boards "
+                 "and this term is a lower bound")
+    return note
 
 
 def model_flops_for(cfg, shape) -> float:

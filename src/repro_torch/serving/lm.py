@@ -14,6 +14,16 @@ kernel once per step.
 serves stablelm-1.6b's reduced config (``--full``: full width) with seeded
 random weights, and reports whether the int8 head's greedy tokens equal the
 dense head's.
+
+On a mesh (params placed on ``transformer.lm_axes``, under
+``distributed/sharding.py::axis_rules``) the head is split over
+"vocab" -> "model": ``quant_head`` packs each rank's own column shard
+(per-column scales, so a shard's packing is the slice of the whole
+head's), every head run launches ``quant_matmul`` on the rank's local
+hidden state and shard, and the logits come back as a DTensor split over
+the vocabulary. ``greedy_tokens`` takes their argmax on the shards (the
+first maximal index, as ``torch.argmax``) with two all-reduces of (B, T)
+rows, so the logits are never gathered.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.quantization import mmse_clip
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as tfm
 from repro_torch.roofline.counter import trips
@@ -43,11 +54,44 @@ def decode_loop(params, cfg, tokens, gen: int, head_fn=None):
                                 head_fn=head_fn)
     out = []
     for _ in trips(gen):
-        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        nxt = greedy_tokens(logits[:, -1])[:, None]
         out.append(nxt)
         logits, cache = tfm.decode_step(params, cfg, cache, nxt,
                                         head_fn=head_fn)
     return torch.cat(out, dim=1)
+
+
+def greedy_tokens(logits):
+    """``argmax`` over the last dim (the first maximal index). On a DTensor
+    split over its last dim each rank takes its shard's argmax, and the
+    maximum and then the least global index holding it are all-reduced
+    over the splitting mesh dims; the result is a DTensor of the other
+    dims' placements."""
+    if not sh.split_over(logits, -1):
+        return torch.argmax(logits, dim=-1)
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    _, off = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+    local = logits.to_local()
+    idx = torch.argmax(local, dim=-1)
+    val = torch.gather(local, -1, idx[..., None])[..., 0]
+    dims = [i for i, p in enumerate(logits.placements)
+            if isinstance(p, Shard) and p.dim == last]
+    best = val
+    for i in dims:
+        best = funcol.all_reduce(best, "max", (mesh, i))
+    cand = torch.where(val == best, idx + off[last],
+                       torch.full_like(idx, logits.shape[-1]))
+    for i in dims:
+        cand = funcol.all_reduce(cand, "min", (mesh, i))
+    pl = [Replicate() if i in dims else p
+          for i, p in enumerate(logits.placements)]
+    return sh.from_local(cand, mesh, pl, logits.shape[:-1])
 
 
 @dataclass
@@ -70,23 +114,57 @@ class QuantHead:
                 + self.scales.numel() * self.scales.element_size())
 
 
-def quant_head(params, cfg, bits: int, clip: Optional[float] = None
-               ) -> QuantHead:
+@dataclass
+class ShardedQuantHead:
+    """An output head split over the vocabulary: ``local`` is this rank's
+    ``QuantHead`` of its column shard, and a call returns the logits as a
+    DTensor of the head's placements (``placements``: the head weight's,
+    its vocab dim split) over ``mesh``."""
+    local: QuantHead
+    mesh: object
+    placements: tuple
+    vocab: int
+
+    def __call__(self, hidden):
+        from torch.distributed.tensor import Replicate, Shard
+        # the hidden state whole along D; its batch split kept
+        hpl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+               for p in hidden.placements]
+        h = hidden.redistribute(self.mesh, hpl)
+        y = self.local(h.to_local())
+        last = hidden.ndim - 1
+        pl = [Shard(last) if isinstance(w, Shard) and w.dim == 1 else p
+              for p, w in zip(hpl, self.placements)]
+        return sh.from_local(y, self.mesh, pl,
+                             hidden.shape[:-1] + (self.vocab,))
+
+
+def quant_head(params, cfg, bits: int, clip: Optional[float] = None):
     """Pack the LM head at ``bits`` with clip ``clip`` (default: the MMSE
     clip of the whole head, a 64-step host search; a caller with a large
-    head may pass a clip found on a sample)."""
-    w = tfm.logits_head_weight(params, cfg).to(torch.float32)
+    head may pass a clip found on a sample). A head that is a DTensor
+    gives a ``ShardedQuantHead``: each rank packs its own column shard."""
+    w = tfm.logits_head_weight(params, cfg)
     if clip is None:
-        clip = mmse_clip(w, bits)
-    packed, scales = kops.pack_for_kernel(w, bits, clip)
-    return QuantHead(packed, scales, bits)
+        clip = mmse_clip(sh.full(w).to(torch.float32), bits)
+    if not sh.is_dtensor(w):
+        packed, scales = kops.pack_for_kernel(w.to(torch.float32), bits, clip)
+        return QuantHead(packed, scales, bits)
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(p if isinstance(p, Shard) and p.dim == 1 else Replicate()
+               for p in w.placements)
+    w = w.redistribute(w.device_mesh, pl)
+    packed, scales = kops.pack_for_kernel(w.to_local().to(torch.float32),
+                                          bits, clip)
+    return ShardedQuantHead(QuantHead(packed, scales, bits), w.device_mesh,
+                            pl, w.shape[1])
 
 
 def int8_head(params, cfg) -> QuantHead:
     """The int8 head the reference serves through: clip at max |w|, so each
     column's scale is its own range (argmax-lossless on its test heads)."""
     w = tfm.logits_head_weight(params, cfg)
-    return quant_head(params, cfg, 8, float(torch.max(torch.abs(w))))
+    return quant_head(params, cfg, 8, float(sh.full(torch.max(torch.abs(w)))))
 
 
 def main(argv=None) -> int:

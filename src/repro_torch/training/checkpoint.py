@@ -16,10 +16,12 @@ worker thread while the file is synced; ``restore`` hashes the bytes on a
 worker thread while ``np.load`` parses them, and returns nothing before
 the digest is checked (hashlib releases the GIL on large buffers).
 
-The reference also restores onto a device mesh (a tree of shardings);
-the port's only mesh is the population axis (``launch/mesh.py``), and
-model-parallel restores wait for ROADMAP.md queue 1, item 9b, so that
-branch is not carried over.
+``restore(..., shardings=)`` restores onto a device mesh, as the
+reference does: each leaf is read whole and placed on its ``Sharding``
+(``distributed/sharding.py``), each rank keeping its own slice, so a
+checkpoint saved on any mesh (or none) restores onto any other. A sharded
+tree saves as whole tensors (``durable_io.leaf_array`` gathers a DTensor),
+so the files are the same whichever mesh wrote them.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from repro_torch.core.durable_io import (CorruptFileError, flatten_tree,
                                          fsync_dir, fsync_path, host_tree,
                                          leaf_array, sha256_bytes,
                                          unflatten_like)
+from repro_torch.distributed.sharding import place_tree
 
 _CHUNK = 64 << 20
 
@@ -109,11 +112,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, target_tree, step: Optional[int] = None):
+def restore(ckpt_dir: str, target_tree, step: Optional[int] = None,
+            shardings=None):
     """Restore step ``step`` (default: the newest) into the structure of
     ``target_tree``: each leaf takes its template leaf's dtype and device
-    (``durable_io.unflatten_like``). Returns (tree, step); raises
-    ``CorruptFileError`` when ``arrays.npz`` fails its checksum."""
+    (``durable_io.unflatten_like``) and, with ``shardings`` (a matching
+    tree of ``Sharding``), its placements on that mesh. Returns (tree,
+    step); raises ``CorruptFileError`` when ``arrays.npz`` fails its
+    checksum."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -139,7 +145,10 @@ def restore(ckpt_dir: str, target_tree, step: Optional[int] = None):
             raise CorruptFileError(
                 f"{path}/arrays.npz sha256 mismatch — checkpoint is "
                 "corrupt; restore an earlier step")
-    return unflatten_like(target_tree, flat), step
+    tree = unflatten_like(target_tree, flat)
+    if shardings is not None:
+        tree = place_tree(tree, shardings)
+    return tree, step
 
 
 class AsyncCheckpointer:

@@ -86,6 +86,10 @@ def init_opt_state(params) -> Dict:
             "count": torch.zeros((), dtype=torch.int32, device=leaf.device)}
 
 
+def opt_state_axes(param_axes):
+    return {"m": param_axes, "v": param_axes, "count": ()}
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
                           for leaf in tree_leaves(tree)))

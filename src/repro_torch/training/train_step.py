@@ -4,7 +4,7 @@ Port of the reference package's ``training/train_step.py``. The train
 state is a plain dict: ``{"params", "opt", "step"}``; a step takes the loss
 and its gradient (``optimizer.value_and_grad``) and applies
 ``optimizer.adamw_update``. With ``accum_steps > 1`` the batch splits into
-that many microbatches along its first axis; their losses and float32
+that many microbatches along its first axis (``microbatch``); their losses and float32
 gradients are summed in order and divided by ``accum_steps``, as the
 reference's scan does. Under a roofline counter the microbatch loop runs
 two microbatches, the second counted ``accum_steps - 1`` times
@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import from_local, full, split_over
 from repro_torch.models.registry import Model
 from repro_torch.roofline.counter import trips
 from repro_torch.training import optimizer as opt
@@ -30,6 +31,26 @@ def init_train_state(model: Model, seed: int = 0):
             "step": torch.zeros((), dtype=torch.int32, device=leaf.device)}
 
 
+def microbatch(v, accum_steps: int, j: int):
+    """Microbatch ``j`` of ``accum_steps``: the j-th block of rows. A batch
+    whose rows are split over the data axes gives each rank the j-th block
+    of its own rows (the data-parallel microbatch; the same rows as the
+    unsharded step's when nothing is split)."""
+    if split_over(v, 0):
+        local = v.to_local()
+        n = local.shape[0] // accum_steps
+        return from_local(local[j * n:(j + 1) * n], v.device_mesh,
+                          v.placements, (v.shape[0] // accum_steps,)
+                          + tuple(v.shape[1:]))
+    return v.reshape((accum_steps, v.shape[0] // accum_steps)
+                     + tuple(v.shape[1:]))[j]
+
+
+def train_state_axes(model: Model):
+    pax = model.axes()
+    return {"params": pax, "opt": opt.opt_state_axes(pax), "step": ()}
+
+
 def make_train_step(model: Model, ocfg: opt.AdamWConfig,
                     accum_steps: int = 1):
     """Returns ``step(state, batch) -> (state, metrics)``; metrics hold the
@@ -40,8 +61,7 @@ def make_train_step(model: Model, ocfg: opt.AdamWConfig,
         if accum_steps > 1:
             loss, grads = None, None
             for j in trips(accum_steps):
-                mb = {k: v.reshape((accum_steps, v.shape[0] // accum_steps)
-                                   + tuple(v.shape[1:]))[j]
+                mb = {k: microbatch(v, accum_steps, j)
                       for k, v in batch.items()}
                 l, g = opt.value_and_grad(model.loss, params, mb)
                 g = opt.tree_leaves(g)
@@ -60,6 +80,8 @@ def make_train_step(model: Model, ocfg: opt.AdamWConfig,
         new_params, new_opt, metrics = opt.adamw_update(
             ocfg, params, grads, state["opt"])
         metrics["loss"] = loss
+        # whole values (a DTensor's pending sums reduced), as plain tensors
+        metrics = {k: full(v) for k, v in metrics.items()}
         return {"params": new_params, "opt": new_opt,
                 "step": state["step"] + 1}, metrics
 

@@ -3,8 +3,9 @@
 real init's shapes and dtypes for every family, ``run_cell`` artifacts in
 the reference's JSON schema, the reference's weight-quantized decode of the
 hybrid (the whole tree dequantized first) against the reference's own,
-the reference's markdown from the same JSON, and the levers that wait for
-a mesh."""
+the reference's markdown from the same JSON, and the mesh cells (``--mesh
+pod|multi|both``, ``--rules``, ``--bf16-partials``, run in subprocesses:
+the fake process group of a mesh cell must not outlive the call)."""
 import dataclasses
 import json
 import subprocess
@@ -25,6 +26,7 @@ from repro.roofline import report as RR
 from repro.roofline import tables as RTAB
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import SHAPES, reduced_shape
+from repro_torch.configs.base import SHAPES_BY_NAME as SHAPES_BY_NAME_PORT
 from repro_torch.core import quantization as Q
 from repro_torch.launch import dryrun as D
 from repro_torch.models import common as TC
@@ -211,15 +213,164 @@ def test_gen_tool_writes_only_its_blocks(tmp_path):
     assert "stablelm-1.6b | decode_32k" in text
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "multi"], ["--mesh", "both"],
-                                  ["--rules", "{}"], ["--bf16-partials"]])
+@pytest.mark.parametrize("argv", [["--rules", "{}"], ["--bf16-partials"],
+                                  ["--mesh", "single", "--rules", "{}"],
+                                  ["--mesh", "single", "--bf16-partials"]])
 def test_unported_levers_raise(argv, tmp_path, capsys):
+    """The sharding levers act on a mesh's cells: with one card (``--mesh
+    single``, the default) they exit 2 and ``run_cell`` raises."""
     assert D.main(argv + ["--arch", "stablelm-1.6b", "--shape",
                           "decode_32k", "--out", str(tmp_path)]) == 2
-    assert "ROADMAP item 9" in capsys.readouterr().err
+    assert "act on a mesh" in capsys.readouterr().err
     assert not list(tmp_path.iterdir())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        D.run_cell("stablelm-1.6b", "decode_32k", "multi")
+    with pytest.raises(ValueError, match="act on a mesh"):
+        D.run_cell("stablelm-1.6b", "decode_32k", "single",
+                   rules_override={"mlp": None})
+
+
+def _dryrun(argv, out, timeout=600):
+    """The dry run's CLI in a subprocess (its fake process group must not
+    outlive the call in this worker); returns the cells it wrote."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+         str(out)] + argv, capture_output=True, text=True, timeout=timeout,
+        cwd=REPO, env={**__import__("os").environ, "PYTHONPATH": "src"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return {p.stem: json.loads(p.read_text()) for p in out.glob("*.json")}
+
+
+@pytest.mark.parametrize("argv,meshes", [
+    (["--mesh", "pod"], ["pod"]), (["--mesh", "multi"], ["multi"]),
+    (["--mesh", "both"], ["pod", "multi"]),
+    (["--mesh", "pod", "--rules", '{"mlp": null}'], ["pod"]),
+    (["--mesh", "multi", "--bf16-partials"], ["multi"])])
+def test_mesh_levers(argv, meshes, tmp_path):
+    """``--mesh pod|multi|both``, ``--rules`` and ``--bf16-partials`` on
+    stablelm-1.6b's decode_32k at full size: one cell a mesh, each on its
+    256 or 512 devices with per-device memory that fits a card and a
+    collective term."""
+    cells = _dryrun(argv + ["--arch", "stablelm-1.6b", "--shape",
+                            "decode_32k"], tmp_path)
+    assert sorted(cells) == sorted(f"stablelm-1.6b_decode_32k_{m}"
+                                   for m in meshes)
+    for m in meshes:
+        c = cells[f"stablelm-1.6b_decode_32k_{m}"]
+        assert c["status"] == "ok" and c["fits"]
+        assert c["n_devices"] == {"pod": 256, "multi": 512}[m]
+        assert c["mesh_shape"] == {"pod": {"data": 16, "model": 16},
+                                   "multi": {"pod": 2, "data": 16,
+                                             "model": 16}}[m]
+        r = c["roofline"]
+        assert r["n_collectives"] > 0 and r["collective_s"] > 0
+        assert "NVLink domain" in r["collective_note"]
+        assert c["bf16_partials"] == ("--bf16-partials" in argv)
+        assert c["rules"] == ({"mlp": None} if "--rules" in argv else None)
+    if len(meshes) == 2:      # the tables of both meshes, beside one card's
+        proc = subprocess.run(
+            [sys.executable, str(REPO / "tools" / "torch_gen_experiments.py"),
+             "--dir", str(tmp_path)], capture_output=True, text=True,
+            timeout=120)
+        assert proc.returncode == 0
+        for key in ("TORCH_H100_POD", "TORCH_DRYRUN_POD", "TORCH_H100_MULTI",
+                    "TORCH_DRYRUN_MULTI", "TORCH_H100_SINGLE"):
+            assert f"## {key}" in proc.stdout
+        assert "| stablelm-1.6b | decode_32k | multi | N |" in proc.stdout
+
+
+def _local_bytes(mesh, axes, shapes, rules=None, ensure_model=False):
+    """The bytes of one device's shards of a tree under the reference's
+    specs (``fix_spec`` / ``_ensure_axis`` on duck-typed mesh axes)."""
+    from repro.distributed import sharding as rsh
+    total = 0
+    with rsh.axis_rules(mesh, rules):
+        def visit(ax, sd):
+            nonlocal total
+            if ax is None or not hasattr(sd, "shape") and not isinstance(
+                    ax, dict):
+                return
+            if isinstance(ax, dict):
+                for k in ax:
+                    visit(ax[k], sd[k])
+                return
+            shape = tuple(sd.shape)
+            spec = rsh.fix_spec(mesh, rsh.logical_to_spec(ax), shape)
+            if ensure_model and len(shape) >= 2:
+                spec = rsh._ensure_axis(mesh, spec, shape, "model")
+            n = 1
+            for i, d in enumerate(shape):
+                p = spec[i] if i < len(spec) else None
+                n *= d // rsh._axis_size(mesh, p)
+            total += n * jnp.dtype(sd.dtype).itemsize
+        visit(axes, shapes)
+    return total
+
+
+class _AxesMesh:
+    def __init__(self, **axes):
+        self.shape, self.axis_names = dict(axes), tuple(axes)
+
+
+def test_multi_mesh_reduced_cell_counts(tmp_path):
+    """The reduced stablelm-1.6b decode_32k cell on the (2, 16, 16) mesh,
+    in a subprocess: the per-device argument bytes are the sum of the
+    local shards of the params, the int8 cache and the batch under the
+    reference's specs (beside what the step closes over, the RoPE
+    frequency table); collectives are counted; ``--bf16-partials`` moves
+    the row-parallel partial sums from float32 to bfloat16 all-reduces at
+    half the bytes."""
+    from repro.configs.base import SHAPES_BY_NAME as REF_SHAPES
+    from repro.models import registry as RREG
+    code = ("import json, torch\n"
+            "from repro_torch.launch import dryrun as D\n"
+            "kw = dict(verbose=False, reduced=True, kv_cache_int8=True)\n"
+            "a = D.run_cell('stablelm-1.6b', 'decode_32k', 'multi', **kw)\n"
+            "b = D.run_cell('stablelm-1.6b', 'decode_32k', 'multi', "
+            "bf16_partials=True, **kw)\n"
+            "print(json.dumps([a, b]))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600, cwd=REPO,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": "src"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    f32, bf16 = json.loads(proc.stdout.strip().splitlines()[-1])
+    mesh = _AxesMesh(pod=2, data=16, model=16)
+    rcfg = ref_get_config("stablelm-1.6b").reduced()
+    shape = reduced_shape(SHAPES_BY_NAME_PORT["decode_32k"])
+    rshape = dataclasses.replace(REF_SHAPES["decode_32k"],
+                                 seq_len=shape.seq_len,
+                                 global_batch=shape.global_batch)
+    rm = RREG.get_model(rcfg)
+    key = jax.random.PRNGKey(0)
+    old = RT.KV_CACHE_DTYPE
+    RT.KV_CACHE_DTYPE = jnp.int8
+    try:
+        rc = jax.eval_shape(lambda: rm.init_cache(shape.global_batch,
+                                                  shape.seq_len))
+    finally:
+        RT.KV_CACHE_DTYPE = old
+    crules = D.cache_rules(get_config("stablelm-1.6b").reduced(), shape,
+                           mesh)
+    want = (_local_bytes(mesh, rm.axes(), jax.eval_shape(
+                lambda: rm.init(key)), ensure_model=True)
+            + _local_bytes(mesh, {k: v for k, v in rm.cache_axes().items()
+                                  if k != "cur"}, rc, rules=crules)
+            + _local_bytes(mesh, RREG.batch_axes(rcfg, rshape),
+                           RREG.input_specs(rcfg, rshape)))
+    # what the step closes over: the RoPE frequency table (head_dim / 2 f32)
+    assert f32["closure_bytes"] == 4 * get_config(
+        "stablelm-1.6b").reduced().head_dim // 2
+    assert f32["memory_analysis"]["argument_bytes"] - f32["closure_bytes"] \
+        == want
+    assert f32["n_devices"] == 512 and f32["fits"]
+    r32, r16 = f32["roofline"], bf16["roofline"]
+    assert r32["n_collectives"] > 0 and r32["ici_bytes"] > 0
+    d32, d16 = r32["collective_bytes_by_dtype"], r16["collective_bytes_by_dtype"]
+    moved = d32["all-reduce/float32"] - d16.get("all-reduce/float32", 0.0)
+    assert moved > 0
+    assert d16["all-reduce/bfloat16"] - d32.get("all-reduce/bfloat16", 0.0) \
+        == moved / 2
+    assert r16["collective_bytes_by_type"]["all-reduce"] == \
+        r32["collective_bytes_by_type"]["all-reduce"] - moved / 2
 
 
 def test_every_arch_has_a_port_config():

@@ -117,6 +117,36 @@ def test_mohaq_serving_prices_a_dry_run_cell(tmp_path):
     with pytest.raises(SystemExit, match="repro_torch.launch.dryrun"):
         mod.main(["--artifact", str(tmp_path / "missing.json"),
                   "--device", "cpu"])
+    assert "pod" in mod.ARTIFACT and "--mesh pod" in mod.DRYRUN
+
+
+def test_mohaq_serving_prices_a_pod_cell_per_card(tmp_path):
+    """The default mode's cell, on the (16, 16) mesh (a reduced cell
+    written in a child: a mesh cell runs under a fake process group): the
+    search is per card, over the cell's 256 devices, and front members
+    fit a card."""
+    import json
+    import os
+    import subprocess
+    import sys
+    code = ("import json\n"
+            "from repro_torch.launch import dryrun as D\n"
+            "print(json.dumps(D.run_cell('deepseek-67b', 'decode_32k', "
+            "'pod', verbose=False, kv_cache_int8=True, reduced=True)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": "src"},
+                          cwd=str(Path(__file__).resolve().parents[1]))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    cell = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert cell["n_devices"] == 256 and cell["fits"]
+    path = tmp_path / "cell.json"
+    path.write_text(json.dumps(cell))
+    out = _load("torch_mohaq_serving").main(
+        ["--artifact", str(path), "--reduced", "--device", "cpu"])
+    assert out["n_devices"] == 256 and out["front"]
+    assert out["fits"] == len(out["front"]) > 0
+    assert out["cache_bytes"] < cell["memory_analysis"]["argument_bytes"]
 
 
 def test_mohaq_serving_sharded_demo():

@@ -1,5 +1,7 @@
 """Render the port's dry-run tables (``repro_torch.roofline.tables``) from
-its JSON artifacts into marked blocks of a markdown file.
+its JSON artifacts into marked blocks of a markdown file: one H100
+(``single``) and, as the reference renders its two meshes, the (16, 16)
+``pod`` and (2, 16, 16) ``multi`` meshes' cells (per device).
 
     PYTHONPATH=src python tools/torch_gen_experiments.py [--dir experiments/torch_dryrun] [--out FILE]
 
@@ -21,10 +23,19 @@ from repro_torch.roofline.tables import (dryrun_md, h100_md,  # noqa: E402
                                          load_cells, roofline_md)
 
 
-def render(cells):
-    return {"TORCH_H100_SINGLE": h100_md(cells),
-            "TORCH_ROOFLINE_SINGLE": roofline_md(cells),
-            "TORCH_DRYRUN_SINGLE": dryrun_md(cells)}
+MESHES = ("single", "pod", "multi")
+
+
+def render(by_mesh):
+    """The blocks of each mesh's cells (``by_mesh``: mesh -> cells)."""
+    single = by_mesh["single"]
+    blocks = {"TORCH_H100_SINGLE": h100_md(single),
+              "TORCH_ROOFLINE_SINGLE": roofline_md(single),
+              "TORCH_DRYRUN_SINGLE": dryrun_md(single)}
+    for mesh in MESHES[1:]:
+        blocks[f"TORCH_H100_{mesh.upper()}"] = h100_md(by_mesh[mesh])
+        blocks[f"TORCH_DRYRUN_{mesh.upper()}"] = dryrun_md(by_mesh[mesh])
+    return blocks
 
 
 def write_blocks(text: str, blocks) -> str:
@@ -45,8 +56,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
-    cells = load_cells(args.dir, mesh="single", tag=args.tag)
-    blocks = render(cells)
+    by_mesh = {m: load_cells(args.dir, mesh=m, tag=args.tag) for m in MESHES}
+    blocks = render(by_mesh)
     if not args.out:
         for key, content in blocks.items():
             print(f"## {key}\n\n{content}\n")
@@ -54,6 +65,7 @@ def main(argv=None) -> int:
         text = open(args.out).read() if os.path.exists(args.out) else ""
         with open(args.out, "w") as f:
             f.write(write_blocks(text, blocks))
+    cells = [d for m in MESHES for d in by_mesh[m]]
     counts = {s: sum(1 for d in cells if (d["status"] if d["status"] in
                                           ("ok", "skip") else "fail") == s)
               for s in ("ok", "skip", "fail")}
