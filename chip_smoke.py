@@ -204,7 +204,11 @@ Phases, each printing JSON lines:
    (``DRYRUN_CELLS``); xlstm-350m's ``decode_32k`` (``CARD_CELL``, batch
    128) run on the card in bf16 and with ``--serve-wbits 8``: measured
    ms, peak memory within ``PEAK_TOL`` of the reckoned peak, floor over
-   measured at most ``SHARE_MAX``;
+   measured at most ``SHARE_MAX``; then ``moe_lm``'s granite-moe train step
+   (8 x 512, full width) counted on meta tensors with its layer loop
+   folded and unfolded (every count equal, or the phase raises), its
+   reckoned peak beside ``torch.cuda.max_memory_allocated`` of the real
+   step that ``moe_lm`` ran (within ``PEAK_TOL``) and its floor share;
 10b. examples: ``examples/torch_quickstart.py``,
    ``torch_mohaq_search_sru.py --fast``, ``torch_serve_quantized.py`` and
    ``torch_mohaq_serving.py`` (``--sharded-demo --shards 4``,
@@ -473,6 +477,15 @@ def graph_ms(fn, launches: int = 20) -> dict:
 # every path's bound line (``bound_line``), for the roofline phase's summary
 BOUNDS = []
 SHARE_MAX = 1.05
+# moe_lm's real granite-moe train step, for the roofline phase: its median
+# ms, and the peak of allocated memory and the bytes its arguments hold,
+# net of what was allocated before they were made
+MOE_STEP = {}
+# the counts a folded and an unfolded step must share
+FOLD_FIELDS = ("flops", "flops_by_dtype", "hbm_bytes", "elementwise_flops",
+               "min_hbm_bytes", "launches", "ici_bytes", "n_collectives",
+               "argument_bytes", "closure_bytes", "temp_bytes",
+               "output_bytes", "alias_bytes", "reckoned_peak_bytes")
 
 
 def bound_line(phase, name, fn, measured_ms, **extra):
@@ -3171,6 +3184,7 @@ def moe_train_bound(dev, step_ms: float) -> None:
     from repro_torch.training import optimizer as opt
     from repro_torch.training import train_step as ts
 
+    base = reset_peak()
     cfg = get_config(MOE_TRAIN_ARCH)
     model = get_model(cfg, dev)
     state = ts.init_train_state(model, 0)
@@ -3181,7 +3195,13 @@ def moe_train_bound(dev, step_ms: float) -> None:
                                       MOE_TRAIN["seq"], device=dev))
     bound_line("moe_lm", "granite_train_step", lambda: step(state, batch),
                step_ms)
-    del state, step, batch
+    held = reset_peak() - base
+    out = step(state, batch)
+    torch.cuda.synchronize()
+    MOE_STEP.update(step_ms=step_ms, argument_bytes=held,
+                    max_memory_allocated=torch.cuda.max_memory_allocated()
+                    - base)
+    del state, step, batch, out
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3590,10 +3610,82 @@ def phase_roofline(dev):
         if not row["share"] <= SHARE_MAX:
             raise AssertionError(f"roofline: floor over measured "
                                  f"{row['share']} > {SHARE_MAX}")
+    folded_train_step()
     for fn in ops.WRAPPERS:
         fn.launches = saved[fn.__name__]
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def folded_train_step() -> None:
+    """``moe_lm``'s train step (granite-moe-1b-a400m at full width, a batch
+    of ``MOE_TRAIN``'s 8 x 512 tokens, the same optimizer settings)
+    counted on meta tensors twice: with its layer loop folded
+    (``counter.trips``: the backward pass of the folded trips counted
+    through their autograd nodes, and what each trip leaves alive held for
+    the trips it stands for) and run in full. Every count must be equal.
+    The reckoned peak is held to ``MOE_STEP``'s measured one, within
+    ``PEAK_TOL``, and the floor to the step's median ms."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import common as cm
+    from repro_torch.models.registry import get_model, input_specs
+    from repro_torch.roofline import counter, report
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train_step as ts
+
+    cfg = get_config(MOE_TRAIN_ARCH)
+    model = get_model(cfg, "cpu")
+    state = dryrun.train_state_specs(model)
+    batch = input_specs(cfg, ShapeConfig("moe_train", MOE_TRAIN["seq"],
+                                         MOE_TRAIN["batch"], "train"))
+    step = ts.make_train_step(model, opt.AdamWConfig(
+        lr=MOE_TRAIN["lr"], schedule="constant", warmup_steps=2,
+        total_steps=MOE_TRAIN["steps"]))
+    cm._rope_freqs(cfg.head_dim // 2, float(cfg.rope_theta),
+                   torch.device("meta"))       # the step's cached table
+    counts, secs, floor = {}, {}, {}
+    for fold in (True, False):
+        t0 = time.perf_counter()
+        c = counter.count(step, state, batch, fold_trips=fold)
+        secs[fold] = time.perf_counter() - t0
+        floor[fold] = report.floor_seconds(c) * 1e3
+        counts[fold] = {k: c.as_dict()[k] for k in FOLD_FIELDS}
+    folded, unfolded = counts[True], counts[False]
+    differ = [k for k in FOLD_FIELDS if folded[k] != unfolded[k]]
+    emit({"phase": "roofline", "train_step": MOE_TRAIN_ARCH,
+          "tokens": [MOE_TRAIN["batch"], MOE_TRAIN["seq"]],
+          "layers": cfg.n_layers, "folded": folded, "unfolded": unfolded,
+          "equal": not differ, "fields_differ": differ,
+          "count_s": {"folded": secs[True], "unfolded": secs[False]}})
+    if differ:
+        raise AssertionError(f"roofline: the folded train step's counts "
+                             f"differ from the unfolded ones in {differ}")
+    if not MOE_STEP:
+        return                        # moe_lm did not run (a phase alone)
+    floor_ms = floor[True]
+    reckoned, peak = folded["reckoned_peak_bytes"], \
+        MOE_STEP["max_memory_allocated"]
+    row = {"phase": "roofline", "train_step_on_card": MOE_TRAIN_ARCH,
+           "measured_ms": MOE_STEP["step_ms"], "floor_ms": floor_ms,
+           "share": floor_ms / MOE_STEP["step_ms"],
+           "max_memory_allocated": peak, "reckoned_peak_bytes": reckoned,
+           "peak_vs_reckoned": peak / reckoned,
+           "argument_bytes": MOE_STEP["argument_bytes"],
+           "reckoned_argument_bytes": folded["argument_bytes"]}
+    emit(row)
+    BOUNDS.append({"phase": "roofline", "bound": "granite_train_step folded",
+                   "measured_ms": row["measured_ms"],
+                   "floor_ms": floor_ms, "share": row["share"]})
+    if not abs(peak / reckoned - 1) <= PEAK_TOL:
+        raise AssertionError(f"roofline: the train step's measured peak "
+                             f"{peak} parts from the reckoned {reckoned} by "
+                             f"more than {PEAK_TOL:.0%}")
+    if not row["share"] <= SHARE_MAX:
+        raise AssertionError(f"roofline: train step floor over measured "
+                             f"{row['share']} > {SHARE_MAX}")
 
 
 # ------------------------------------------------------------- families

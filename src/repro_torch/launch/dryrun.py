@@ -10,7 +10,10 @@ the whole ``quantize_tree`` tree first, as the reference does), run once
 on meta tensors under ``roofline/counter.py``: the FLOPs, bytes and kernel
 launches it dispatches, and the bytes it holds alive, in place of the
 compiler's analyses. Nothing compiles: ``lower_s`` is the seconds the spec
-trees took to build, ``compile_s`` is 0, ``analyze_s`` the count's.
+trees took to build, ``compile_s`` is 0, ``analyze_s`` the count's
+(``analyze_cpu_s`` its CPU seconds). The count folds the step's layer,
+token, chunk and microbatch loops (``counter.trips``): each runs four
+trips, whatever its length, and counts as all of them.
 
     python -m repro_torch.launch.dryrun --arch deepseek-67b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--out experiments/torch_dryrun]
@@ -44,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import sys
@@ -334,7 +338,78 @@ def production_mesh(mesh_kind: str):
     """The ``pod`` or ``multi`` mesh over a fake process group (made here
     if no group of that size is up)."""
     lmesh.init_fake_group(MESH_DEVICES[mesh_kind])
+    quick_redistribute_planning()
     return lmesh.make_production_mesh(**MESHES[mesh_kind])
+
+
+def quick_redistribute_planning() -> None:
+    """Make DTensor's graph-based redistribute planner cheaper without
+    changing a plan. Where a placement is a strided shard or a tensor dim
+    is split over mesh dims out of order, DTensor plans a redistribution
+    by Dijkstra over sharding states, and its sharding propagation prices
+    every candidate strategy of every new op that way. Each step's price
+    builds two ``DTensorSpec``s, and each search expands its states anew:
+    on the (2, 16, 16) mesh a train cell spends most of its count there
+    (PERF.md §6). The planner's step price is computed here from the same
+    numbers in the same order (the tensor's bytes over the mesh sizes of
+    its sharded dims, ``_compute_placement_transition_cost``), and a
+    planner keeps the states it expanded, keyed with the target
+    placements that decide them: the same costs and the same paths, so
+    the same collectives are counted. A PyTorch without these internals
+    keeps its own planner."""
+    try:
+        from torch.distributed.tensor import _collective_utils as cu
+        from torch.distributed.tensor import _redistribute as rd
+        from torch.distributed.tensor.placement_types import _is_shard_like
+        planner = rd.DTensorRedistributePlanner
+        step_cost = cu._compute_placement_transition_cost
+        topo_of = cu.MeshTopoInfo.build_from_mesh
+        setup, expand = planner.setup_cost_callbacks, planner.get_next_state
+    except (ImportError, AttributeError):
+        return
+    if getattr(planner, "_quick", False):
+        return
+
+    def setup_cost_callbacks(self):
+        setup(self)
+        meta, mesh = self.dtensor_meta, self.device_mesh
+        nbytes = meta.dtype.itemsize * math.prod(meta.shape)
+        sizes = [mesh.size(i) for i in range(mesh.ndim)]
+        topo = topo_of(mesh)
+
+        def cost_function(src_state, dst_state):
+            cur, tgt = src_state.placements, dst_state.placements
+            if cur == tgt:
+                return 0.0
+            dim = -1
+            for i, (a, b) in enumerate(zip(cur, tgt)):
+                if a != b:
+                    if dim != -1:
+                        raise ValueError("one_step_redistribute_cost "
+                                         "expects specs that differ by "
+                                         "exactly one placement")
+                    dim = i
+            shards = 1
+            for i, p in enumerate(cur):
+                if _is_shard_like(p):
+                    shards *= sizes[i]
+            comm_bytes_gb = nbytes / shards / 1024 / 1024 / 1024
+            return step_cost(cur[dim], tgt[dim], topo, dim, comm_bytes_gb)[0]
+        self.cost_function = cost_function
+
+    def get_next_state(self, placements, tensor_mesh_dim_tuple):
+        key = (placements, tensor_mesh_dim_tuple,
+               frozenset(self.strided_shard_placements_in_target),
+               frozenset(self.partial_reduce_ops_in_target))
+        seen = self.__dict__.setdefault("_expanded", {})
+        if key not in seen:
+            seen[key] = expand(self, placements, tensor_mesh_dim_tuple)
+        return seen[key]
+
+    planner.setup_cost_callbacks = setup_cost_callbacks
+    planner.get_next_state = get_next_state
+    planner._quick = True
+    getattr(rd, "clear_redistribute_planner_cache", lambda: None)()
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
@@ -376,10 +451,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
                 serve_wbits=wbits, rules=rules)
             ctx = sh.axis_rules(mesh, rules)
         t_lower = time.time() - t0
-        t0 = time.time()
+        t0, c0 = time.time(), time.process_time()
         with ctx:
             counts = counter.count(step, *args)
-        t_analyze = time.time() - t0
+        t_analyze, c_analyze = time.time() - t0, time.process_time() - c0
         del step, args
         card = None
         fits = counts.reckoned_peak_bytes < H100_HBM_CAPACITY_BYTES
@@ -398,6 +473,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
            "accum_steps": accum if shape.kind == "train" else None,
            "lower_s": round(t_lower, 2), "compile_s": 0.0,
            "analyze_s": round(t_analyze, 2),
+           "analyze_cpu_s": round(c_analyze, 2),
            "memory_analysis": {
                "argument_bytes": counts.argument_bytes,
                "output_bytes": counts.output_bytes,

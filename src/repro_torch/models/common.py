@@ -147,14 +147,30 @@ def rope(x, positions, theta: float = 10000.0):
 
 # ---------------------------------------------------------------- attention
 
-def _attn_block(q, k, v, qpos, kpos, kv_valid, reduce=None):
-    """Full GQA attention for one block. q: (B,Tq,KV,G,d), k/v: (B,Tk,KV,d).
-    Returns (B,Tq,KV,G,d) in f32. With ``reduce(t, op)`` the keys are this
-    rank's share of a sequence split across ranks: the softmax's max and
-    sum and the PV sum are completed by it across those ranks."""
-    scores = torch.einsum("btkgd,bskd->bkgts", q.to(torch.float32),
+def _attn_block(q, k, v, q_offset, kv_valid, causal, k0=None, Tk=None,
+                reduce=None):
+    """GQA attention with the scores materialized, for one block. q: (B,
+    Tq, H, d), k/v: (B, Tk', KV, d). Returns (B, Tq, H, d) in q's dtype.
+    The scores and the PV product run in f32, the probabilities round to
+    v's dtype before it. Where the keys are this rank's share of a
+    sequence of ``Tk`` split across ranks (a decode over a cache sharded on
+    ``cache_seq``), ``k0`` is their first global position, and
+    ``reduce(t, op)`` completes the softmax's max and sum and the PV sum
+    across the ranks that hold the other keys; else ``torch.softmax``."""
+    B, Tq, H, d = q.shape
+    KV = k.shape[2]
+    dev = q.device
+    qpos = q_offset + torch.arange(Tq, device=dev)
+    kpos = torch.arange(k.shape[1], device=dev)
+    if k0 is not None:
+        kpos = k0 + kpos
+    if not causal:                                  # everything visible
+        qpos = torch.full((Tq,), k.shape[1] if Tk is None else Tk,
+                          device=dev)
+    qg = q.reshape(B, Tq, KV, H // KV, d)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg.to(torch.float32),
                           k.to(torch.float32))
-    scores = scores * (1.0 / math.sqrt(q.shape[-1]))
+    scores = scores * (1.0 / math.sqrt(d))
     mask = kpos[None, :] <= qpos[:, None]                    # (Tq,Tk) causal
     if kv_valid is not None:
         mask = mask & (kpos[None, :] < kv_valid)
@@ -166,7 +182,9 @@ def _attn_block(q, k, v, qpos, kpos, kv_valid, reduce=None):
         p = e / reduce(e.sum(-1, keepdim=True), "sum")
     o = torch.einsum("bkgts,bskd->btkgd",
                      p.to(v.dtype).to(torch.float32), v.to(torch.float32))
-    return o if reduce is None else reduce(o, "sum")
+    if reduce is not None:
+        o = reduce(o, "sum")
+    return o.reshape(B, Tq, H, d).to(q.dtype)
 
 
 def gqa_attention(q, k, v, *, q_offset=0, kv_valid=None,
@@ -194,12 +212,7 @@ def gqa_attention(q, k, v, *, q_offset=0, kv_valid=None,
     if not ((Tq <= chunk_q and Tk <= chunk_k) or max(Tq, Tk) <= dense_max):
         return _flash_attention(qg, k, v, q_offset, kv_valid, chunk_q,
                                 chunk_k, causal).to(q.dtype)
-    qpos = q_offset + torch.arange(Tq, device=q.device)
-    kpos = torch.arange(Tk, device=q.device)
-    if not causal:
-        qpos = torch.full((Tq,), Tk, device=q.device)     # everything visible
-    o = _attn_block(qg, k, v, qpos, kpos, kv_valid)
-    return o.reshape(B, Tq, H, d).to(q.dtype)
+    return _attn_block(q, k, v, q_offset, kv_valid, causal)
 
 
 def _mesh_plan(q, k):
@@ -281,10 +294,9 @@ def _mesh_attention(q, k, v, q_offset, kv_valid, chunk_q, chunk_k, causal,
                           dense_max=dense_max)
     else:
         _, koff = compute_local_shape_and_global_offset(k.shape, mesh, kpl)
-        o = _split_seq_attention(ql, kl, vl, q_offset, kv_valid, causal,
-                                 koff[1], Tk=k.shape[1],
-                                 reduce=lambda t, op: _reduce_over(
-                                     funcol, t, op, mesh, seq))
+        o = _attn_block(ql, kl, vl, q_offset, kv_valid, causal, koff[1],
+                        Tk=k.shape[1], reduce=lambda t, op: _reduce_over(
+                            funcol, t, op, mesh, seq))
     return from_local(o.contiguous(), mesh, qpl, q.shape)
 
 
@@ -292,23 +304,6 @@ def _reduce_over(funcol, t, op, mesh, dims):
     for i in dims:
         t = funcol.all_reduce(t, op, (mesh, i))
     return t
-
-
-def _split_seq_attention(q, k, v, q_offset, kv_valid, causal, k0, Tk,
-                         reduce):
-    """``_attn_block`` over this rank's keys (global positions ``k0 +
-    j``), completed by ``reduce(t, op)`` across the ranks that hold the
-    other keys."""
-    B, Tq, H, d = q.shape
-    KV = k.shape[2]
-    dev = q.device
-    qpos = q_offset + torch.arange(Tq, device=dev)
-    if not causal:
-        qpos = torch.full((Tq,), Tk, device=dev)
-    kpos = k0 + torch.arange(k.shape[1], device=dev)
-    o = _attn_block(q.reshape(B, Tq, KV, H // KV, d), k, v, qpos, kpos,
-                    kv_valid, reduce)
-    return o.reshape(B, Tq, H, d).to(q.dtype)
 
 
 def _flash_attention(qg, k, v, q_offset, kv_valid, chunk_q, chunk_k,
@@ -320,7 +315,7 @@ def _flash_attention(qg, k, v, q_offset, kv_valid, chunk_q, chunk_k,
     there), ``p`` rounded to v's dtype before the PV product (f32 sums),
     padded keys masked by ``valid``; the output is ``acc / max(l,
     1e-30)``. Returns (B, Tq, H, d) f32. Every trip of either loop has the
-    same shapes, so under a roofline counter each is folded to two trips
+    same shapes, so under a roofline counter each folds to four trips
     whose counts add up to its trip count (``roofline/counter.py::trips``)."""
     B, Tq, KV, G, d = qg.shape
     Tk = k.shape[1]

@@ -25,6 +25,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import place_by_axes, shard
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
+from repro_torch.roofline.counter import trips
 
 Params = Dict
 
@@ -101,7 +102,7 @@ def encode(params, cfg, frames):
     in the reference."""
     x = shard(frames.to(torch.bfloat16), "batch", "seq", "embed")
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.n_layers):
+    for i in trips(cfg.n_layers):
         x = tfm.run_block(torch.is_grad_enabled(), _enc_block,
                           tfm.layer(params["enc"], i), cfg, x, positions)
     return cm.rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -146,7 +147,7 @@ def forward(params, cfg, frames, dec_tokens, remat: bool = True):
     x = tfm.embed_tokens(params, cfg, dec_tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     remat = remat and torch.is_grad_enabled()
-    for i in range(cfg.n_dec_layers):
+    for i in trips(cfg.n_dec_layers):
         x = tfm.run_block(remat, _dec_block, tfm.layer(params["dec"], i),
                           cfg, x, enc_out, positions)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -185,7 +186,7 @@ def decode_step(params, cfg, cache, token):
     kc, vc = cache["self"]["k"], cache["self"]["v"]
     if cur >= kc.shape[2]:
         raise ValueError(f"KV cache full: position {cur} of {kc.shape[2]}")
-    for i in range(cfg.n_dec_layers):
+    for i in trips(cfg.n_dec_layers):
         x = _dec_block(tfm.layer(params["dec"], i), cfg, x, cache["enc_out"],
                        None, kc[i], vc[i], cur)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)

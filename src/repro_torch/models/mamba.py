@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.distributed.sharding import shard
 from repro_torch.models import common as cm
+from repro_torch.roofline.counter import fill_trips, trips
 
 # the logical axes of each leaf (the reference's ``mamba_axes()``)
 MAMBA_AXES = {
@@ -141,7 +142,7 @@ def mamba_fwd(p, cfg, h, return_state: bool = False):
     hstate = torch.zeros((B, di, cfg.ssm_d_state), dtype=torch.float32,
                          device=h.device)
     ys = []
-    for c in range(nch):
+    for c in trips(nch):
         sl = slice(c * chunk, (c + 1) * chunk)
         xk, dtk, Bk, Ck = xf[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
         a = torch.exp(dtk[..., None] * A)                      # (B,c,di,N)
@@ -151,7 +152,7 @@ def mamba_fwd(p, cfg, h, return_state: bool = False):
         y = torch.einsum("bcdn,bcn->bcd", hs, Ck)
         ys.append(y + p["D_skip"] * xk)
         hstate = hs[:, -1]
-    y = torch.cat(ys, dim=1)[:, :T]
+    y = torch.cat(fill_trips(ys, nch), dim=1)[:, :T]
     y = (y * cm.silu(z.to(torch.float32))).to(h.dtype)
     y = shard(y, "batch", "seq", "ssm_inner")
     out = shard(cm.dense(y, p["out_proj"]), "batch", "seq", "embed")

@@ -5,7 +5,8 @@ Port of the reference package's ``models/transformer.py``. Layers are
 stacked on a leading axis, as in the reference's params (``params["blocks"]["attn"]["wq"]`` is (L, D, H, hd),
 ``params["blocks"]["ffn"]["w_gate"]`` of an MoE is (L, E, D, F)), so
 ``params_from_numpy`` carries its weights across unchanged; a Python loop
-over the stack takes the place of ``lax.scan``, and ``layer(blocks, i)``
+over the stack (``counter.trips``: folded under a roofline counter) takes
+the place of ``lax.scan``, and ``layer(blocks, i)``
 reads one layer (a tree that dequantizes one layer at a time, such as
 ``core/quantization.py::DequantizedByLayer``, gives its own). Serving
 keeps a stacked KV cache, (L, B, max_len, KV, hd), in ``KV_CACHE_DTYPE``
@@ -42,6 +43,7 @@ from repro_torch.distributed.sharding import from_local, is_dtensor, \
     place_by_axes, shard, split_over
 from repro_torch.models import common as cm
 from repro_torch.models import mamba as mb
+from repro_torch.roofline.counter import trips
 
 Params = Dict[str, Any]
 
@@ -385,7 +387,7 @@ def forward(params, cfg: ArchConfig, tokens, extra_embeds=None,
     remat = remat and torch.is_grad_enabled()
     if cfg.family == "hybrid":
         G, P = _groups(cfg)
-        for g in range(G):
+        for g in trips(G):
             for j in range(P - 1):
                 x = run_block(remat, mamba_block_fwd,
                               mamba_layer(params["mamba_blocks"], g, j), cfg,
@@ -393,7 +395,7 @@ def forward(params, cfg: ArchConfig, tokens, extra_embeds=None,
             x = run_block(remat, attn_block_fwd,
                           layer(params["attn_blocks"], g), cfg, x, positions)
     else:
-        for i in range(cfg.n_layers):
+        for i in trips(cfg.n_layers):
             x = run_block(remat, attn_block_fwd, layer(params["blocks"], i),
                           cfg, x, positions)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -454,7 +456,7 @@ def decode_step(params, cfg: ArchConfig, cache, token, head_fn=None):
     if cfg.family == "hybrid":
         G, P = _groups(cfg)
         ssm = cache["ssm"]
-        for g in range(G):
+        for g in trips(G):
             for j in range(P - 1):
                 x = mamba_block_decode(
                     mamba_layer(params["mamba_blocks"], g, j), cfg, x,
@@ -462,7 +464,7 @@ def decode_step(params, cfg: ArchConfig, cache, token, head_fn=None):
             x = attn_block_decode(layer(params["attn_blocks"], g), cfg, x,
                                   kc[g], vc[g], cur)
     else:
-        for i in range(cfg.n_layers):
+        for i in trips(cfg.n_layers):
             x = attn_block_decode(layer(params["blocks"], i), cfg, x, kc[i],
                                   vc[i], cur)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -494,7 +496,7 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: Optional[int] = None,
 
     if cfg.family == "hybrid":
         G, P = _groups(cfg)
-        for g in range(G):
+        for g in trips(G):
             for j in range(P - 1):
                 st: Dict[str, torch.Tensor] = {}
                 x = mamba_block_fwd(mamba_layer(params["mamba_blocks"], g, j),
@@ -503,7 +505,7 @@ def prefill(params, cfg: ArchConfig, tokens, max_len: Optional[int] = None,
                     cache["ssm"][name][g, j] = st[name]
             x = attn(layer(params["attn_blocks"], g), g, x)
     else:
-        for i in range(cfg.n_layers):
+        for i in trips(cfg.n_layers):
             x = attn(layer(params["blocks"], i), i, x)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = x[:, -1:]

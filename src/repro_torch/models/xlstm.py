@@ -44,6 +44,7 @@ from repro_torch.distributed.sharding import elementwise, on_row_shards, \
     place_by_axes, whole_for_groups
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tfm
+from repro_torch.roofline.counter import fill_trips, trips
 
 Params = Dict
 Mm = Callable[..., torch.Tensor]
@@ -138,7 +139,7 @@ def _mlstm_chunks(q, k, v, logi, logf, chunk: int, stop_early: bool):
     S = n = None                      # the zero state
     m = torch.zeros((B, H), dtype=torch.float32, device=q.device)
     ys = []
-    for c in range(nch):
+    for c in trips(nch):
         sl = slice(c * chunk, (c + 1) * chunk)
         qk, kk, vk, ik, fk = q[:, sl], k[:, sl], v[:, sl], logi[:, sl], \
             logf[:, sl]
@@ -175,7 +176,7 @@ def _mlstm_chunks(q, k, v, logi, logf, chunk: int, stop_early: bool):
             S = S * keep[..., None, None] + S_up
             n = n * keep[..., None] + n_up
         m = m_next
-    return torch.cat(ys, dim=1), S, n, m
+    return torch.cat(fill_trips(ys, nch), dim=1), S, n, m
 
 
 def mlstm_fwd(p, cfg: ArchConfig, x, chunk: int = 128,
@@ -304,9 +305,10 @@ def slstm_fwd(p, cfg: ArchConfig, x, return_state: bool = False,
         B, T, H, dh, 4)
     state = slstm_init_state(cfg, B, x.device)
     hs = []
-    for t in range(T):
+    for t in trips(T):
         state = _slstm_cell(p, cfg, pre[:, t], state, rec)
         hs.append(state["h"])
+    hs = fill_trips(hs, T)
     y = whole_for_groups(torch.stack(hs, dim=1).reshape(lead + (T, di)),
                          H).to(x.dtype)
     out = mm("wo", y)
@@ -411,7 +413,7 @@ def _pairs_fwd(params, cfg: ArchConfig, x, states=None):
     the sum inside a pair reaches its norm unrounded (``add_rms_norm``).
     ``states``: a list that receives each pair's final (mLSTM, sLSTM)
     state."""
-    for g in range(cfg.n_layers // 2):
+    for g in trips(cfg.n_layers // 2):
         bp = pair(params, g)
         keep = states is not None
         y = mlstm_fwd(bp["mlstm"], cfg,
@@ -469,7 +471,7 @@ def decode_step(params, cfg: ArchConfig, cache, token):
     by one. The residual adds and norms are taken as in ``forward``
     (``add_rms_norm``), as the reference's jitted ``decode_step`` does."""
     x = tfm.embed_tokens(params, cfg, token)
-    for g in range(cfg.n_layers // 2):
+    for g in trips(cfg.n_layers // 2):
         bp = pair(params, g)
         mst = {k: v[g] for k, v in cache["mlstm"].items()}
         sst = {k: v[g] for k, v in cache["slstm"].items()}
@@ -495,6 +497,7 @@ def prefill(params, cfg: ArchConfig, tokens):
     x = _pairs_fwd(params, cfg, tfm.embed_tokens(params, cfg, tokens),
                    states)
     logits = tfm.logits_head(params, cfg, x[:, -1:])
+    states = fill_trips(states, cfg.n_layers // 2)
     stack = {name: {k: torch.stack([s[i][k] for s in states])
                     for k in states[0][i]}
              for i, name in enumerate(("mlstm", "slstm"))}

@@ -34,14 +34,28 @@ what it dispatches, on an executed run (CPU or card) or on meta tensors
   ``reckoned_peak_bytes`` is the first plus the second. Storages are
   followed by weak references, so a freed intermediate leaves the count.
 - Trip counts: ``trips(n)`` is ``range(n)`` except under a counter, where
-  it runs the body twice, the second trip's counts multiplied by n - 1, as
-  the reference multiplies a loop body by its trip count
-  (``hlo_analysis.py:265``). The train step's microbatches and the decode
-  loop's tokens use it, and the flash branch's chunk loops (whose every
-  trip has the same shapes: fold only such loops). Memory is not
-  multiplied: the second trip runs beside what the first left alive (the
-  microbatch loop's gradient accumulator), which is the steady state of
-  every later trip.
+  a loop of more than four trips runs four: the first two, one middle trip
+  whose counts are multiplied by n - 3, and the last, as the reference
+  multiplies a loop body by its trip count (``hlo_analysis.py:265``). The
+  trips at either end run as themselves, so what differs there (a zero
+  initial state and what the second trip frees of the first's, a skipped
+  last update, the order in which the backward pass sums a stacked
+  weight's gradients) is counted as it happens. Fold only loops whose
+  middle trips have the same shapes: the layer loops, the train step's
+  microbatches, the decode loop's tokens, the sLSTM's steps and the chunk
+  loops of the flash branch, the mLSTM and the Mamba scan. The backward pass of a folded loop runs after it, in
+  autograd: every op it runs under an autograd node made in a middle trip
+  (``torch._C._current_autograd_node``, whose sequence number lies in the
+  trip's range) takes the trip's multiplier, a checkpointed block's
+  recomputation included. Memory is not multiplied, but what a middle
+  trip leaves alive (its net growth, a remat-saved block input or a
+  state appended to a list) is held n - 4 more times from the end of the
+  middle trip, and let go with the storages that carry it: at once when
+  they are freed in the forward pass, once the backward pass has left the
+  middle trip's nodes when they are freed in it. A loop that collects a
+  value a trip passes its list through ``fill_trips``, which repeats the
+  middle trip's entry (detached, so that the backward pass sums nothing
+  the unfolded loop does not).
 
 - Collectives (a step on DTensors, ``distributed/sharding.py``): DTensor
   runs each op on the local shards, which are what is counted (per-device
@@ -254,12 +268,21 @@ class Counter(TorchDispatchMode):
         self.counts = RooflineCounts()
         self.by_op: Dict[str, List[float]] = {}     # name: [flops, bytes, calls]
         self._mult = 1
+        self._ranges: List = []          # closed middle trips: (s0, s1, k)
+        self._node_mult: Dict[int, int] = {}
+        self._phantom: Dict = {}         # storage key: [bytes, s0]
+        self._deferred: List = []        # [bytes, s0] freed in the backward
+        self._ids: Dict[int, int] = {}   # storage key: order of making
+        self._logs: List[list] = []      # what open trips make, in order
+        self._next_id = itertools.count()
+        self._hi = 0                     # high-water of the open middle trip
         self._suppress = 0
         self._open = False
         self._made: Dict[int, int] = {}            # live storages of the step
         self._live = 0
         self._peak = 0
         self._pre: Dict[int, int] = {}             # older storages: bytes
+        self._copies: Dict = {}                    # of them: trips each
         self._reads: Dict[int, Dict] = {}
         self._writes: Dict[int, Dict] = {}
         self._tombs = itertools.count()          # keys of freed older storages
@@ -278,6 +301,14 @@ class Counter(TorchDispatchMode):
             self._pre[key] = st.nbytes()
             weakref.finalize(st, _call_weakly, weakref.ref(self), "_retire",
                              key)
+            if self._open:
+                # first seen inside the step (a buffer made where no mode
+                # sees it, as DTensor's redistributions on a fake group
+                # make some): in a middle trip it stands for a storage a
+                # trip
+                m = self._m()
+                if m > 1:
+                    self._copies[key] = m
         return key
 
     def _track(self, t: torch.Tensor) -> None:
@@ -287,13 +318,133 @@ class Counter(TorchDispatchMode):
             return
         nbytes = st.nbytes()
         self._made[key] = nbytes
-        self._live += nbytes
-        self._peak = max(self._peak, self._live)
+        self._ids[key] = i = next(self._next_id)
+        for log in self._logs:
+            log.append((key, i))
+        self._grow(nbytes)
         weakref.finalize(st, _call_weakly, weakref.ref(self), "_free", key)
+
+    def _grow(self, nbytes: int) -> None:
+        self._live += nbytes
+        if self._live > self._hi:
+            self._hi = self._live
+        if self._live > self._peak:
+            self._peak = self._live
 
     def _free(self, key: int) -> None:
         if self._open:
             self._live -= self._made.pop(key, 0)
+            self._ids.pop(key, None)
+            held = self._phantom.pop(key, None)
+            if held is not None:
+                seq = _node_seq()
+                s0 = held[1] if held[1] is not None else self._range_of(seq)
+                if seq is not None and s0 is not None and seq >= s0:
+                    self._deferred.append([held[0], s0])   # until the
+                else:                          # trip's backward is done
+                    self._live -= held[0]
+
+    def _range_of(self, seq: Optional[int]) -> Optional[int]:
+        """The start of the innermost closed middle trip whose nodes hold
+        ``seq``: a checkpointed block's recomputation folds its loops
+        again inside the backward pass, and what a recomputed middle trip
+        saved is let go once the backward has left that trip's nodes of
+        the forward pass."""
+        if seq is None:
+            return None
+        inner = None
+        for s0, s1, _ in self._ranges:
+            if s0 <= seq < s1 and (inner is None or s0 > inner):
+                inner = s0
+        return inner
+
+    def _release_deferred(self, seq: int) -> None:
+        keep = []
+        for held in self._deferred:
+            if seq < held[1]:
+                self._live -= held[0]
+            else:
+                keep.append(held)
+        self._deferred = keep
+
+    def _m(self) -> int:
+        """The multiplier of an op dispatched now: the open middle trips'
+        (``_mult``), times, in a backward pass, that of the closed middle
+        trips whose autograd node runs it."""
+        if not self._ranges:
+            return self._mult
+        seq = _node_seq()
+        if seq is None:
+            return self._mult
+        if self._deferred:
+            self._release_deferred(seq)
+        k = self._node_mult.get(seq)
+        if k is None:
+            k = 1
+            for s0, s1, n in self._ranges:
+                if s0 <= seq < s1:
+                    k *= n
+            self._node_mult[seq] = k
+        return self._mult * k
+
+    # ---------------------------------------------------------- folding
+    def _middle_enter(self):
+        """State kept at the start of a middle trip."""
+        outer_hi = self._hi
+        self._hi = self._live
+        log: list = []
+        self._logs.append(log)
+        return (_next_seq(), self._live, outer_hi, log,
+                _node_seq() is not None)
+
+    def _middle_exit(self, mark, k: int, before: list):
+        """The end of a middle trip standing for ``k`` trips: its autograd
+        nodes' range is closed, and its net growth is held ``k - 1`` more
+        times. ``before``: what the trip before it made, in order. Returns
+        the middle trip's counterparts of those of them still alive."""
+        s0, live0, outer_hi, log, in_backward = mark
+        self._logs.remove(log)
+        s1 = _next_seq()
+        if in_backward:
+            s0 = None
+        elif s1 > s0:
+            self._ranges.append((s0, s1, k))
+            self._node_mult.clear()
+        growth = self._live - live0
+        extra = (k - 1) * growth if growth > 0 else 0
+        inner_hi = self._hi + extra
+        self._peak = max(self._peak, inner_hi)
+        self._hi = max(outer_hi, inner_hi)
+        made = _counterparts(
+            [(j, self._made[key]) for j, (key, i) in enumerate(before)
+             if self._ids.get(key) == i],
+            [(j, self._made[key], (key, i)) for j, (key, i) in enumerate(log)
+             if self._ids.get(key) == i])
+        if extra:
+            self._grow(extra)
+        return s0, extra, made
+
+    def _hold(self, s0: int, extra: int, made) -> None:
+        """At the end of the loop: ``extra`` (the middle trip's growth held
+        again) is carried, in proportion to their bytes, by ``made``'s
+        storages that are still alive: the middle trip's counterparts of
+        what the trip before it made and left alive through it (a value
+        appended to a list, a saved block input), not what the last trip
+        left in place of the middle one's locals; with none, let go."""
+        carriers = [(key, self._made[key]) for key, i in made
+                    if self._ids.get(key) == i]   # not an address reused
+        total = sum(n for _, n in carriers)
+        if not total:
+            self._live -= extra
+            return
+        shares = [extra * n // total for _, n in carriers]
+        shares[-1] += extra - sum(shares)
+        for (key, _), share in zip(carriers, shares):
+            held = self._phantom.get(key)
+            if held is None:
+                self._phantom[key] = [share, s0]
+            else:
+                held[0] += share
 
     def _retire(self, key: int) -> None:
         """An older storage freed during the step keeps its bytes and books
@@ -304,6 +455,8 @@ class Counter(TorchDispatchMode):
             self._pre[tomb] = self._pre.pop(key)
             if key in self._declared:
                 self._declared.add(tomb)
+            if key in self._copies:
+                self._copies[tomb] = self._copies.pop(key)
             for book in (self._reads, self._writes):
                 if key in book:
                     book[tomb] = book.pop(key)
@@ -313,12 +466,12 @@ class Counter(TorchDispatchMode):
         if key is not None:
             views = book.setdefault(key, {})
             vk = _view_key(t)
-            views[vk] = views.get(vk, 0) + nbytes * self._mult
+            views[vk] = views.get(vk, 0) + nbytes * self._m()
 
     # ---------------------------------------------------------- counting
     def _add(self, name: str, flops: float, dtype: str, nbytes: float,
              elementwise: float = 0.0) -> None:
-        c, m = self.counts, self._mult
+        c, m = self.counts, self._m()
         if flops:
             c.flops += flops * m
             c.flops_by_dtype[dtype] = c.flops_by_dtype.get(dtype, 0.0) \
@@ -339,7 +492,7 @@ class Counter(TorchDispatchMode):
             self._add(name, cost.flops, "float32", cost.hbm_bytes,
                       cost.elementwise_flops)
             self.counts.launches[name] = self.counts.launches.get(name, 0) \
-                + self._mult
+                + self._m()
             for t, nbytes in zip(operands, cost.reads):
                 self._touch(self._reads, t, nbytes)
         self._suppress += 1
@@ -378,7 +531,8 @@ class Counter(TorchDispatchMode):
     def _collective(self, func, args) -> None:
         kind, factor = _RING[func.overloadpacket.__name__]
         n = _group_size(args)
-        b = _distinct_bytes(args[0]) * factor(n) * self._mult if n > 1 else 0
+        m = self._m()
+        b = _distinct_bytes(args[0]) * factor(n) * m if n > 1 else 0
         c = self.counts
         c.ici_bytes += b
         c.collective_bytes_by_type[kind] = \
@@ -386,7 +540,7 @@ class Counter(TorchDispatchMode):
         key = f"{kind}/{str(args[0].dtype).replace('torch.', '')}"
         c.collective_bytes_by_dtype[key] = \
             c.collective_bytes_by_dtype.get(key, 0.0) + b
-        c.n_collectives += self._mult
+        c.n_collectives += m
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -468,12 +622,16 @@ class Counter(TorchDispatchMode):
             if st._cdata in self._made:
                 out_keys[st._cdata] = st.nbytes()
         c.output_bytes = sum(out_keys.values())
-        c.argument_bytes = sum(self._pre.values())
-        c.closure_bytes = sum(n for key, n in self._pre.items()
+        copies = self._copies
+        c.argument_bytes = sum(n * copies.get(key, 1)
+                               for key, n in self._pre.items())
+        c.closure_bytes = sum(n * copies.get(key, 1)
+                              for key, n in self._pre.items()
                               if key not in self._declared)
-        c.temp_bytes = self._peak
-        touched = [sum(min(self._pre[key], sum(views.values()))
-                       for key, views in book.items())
+        c.temp_bytes = int(self._peak)
+        touched = [sum(k * min(self._pre[key], sum(views.values()) / k)
+                       for key, views in book.items()
+                       for k in (copies.get(key, 1),))
                    for book in (self._reads, self._writes)]
         c.alias_bytes = int(touched[1])
         c.min_hbm_bytes = float(c.output_bytes) + touched[0] + touched[1]
@@ -508,22 +666,99 @@ def top_contributors(fn, *args, top: int = 12, **kwargs):
 
 
 def trips(n: int):
-    """``range(n)``; under a counter that folds trips, the body runs twice:
-    index 0 counted once, then index 1 with its counts multiplied by
-    ``n - 1``. FLOPs, bytes and launches are those of ``n`` bodies, and the
-    second trip sees what the first left alive (an accumulator), so the
-    memory high-water mark is that of a later trip."""
-    if n <= 1 or not _ACTIVE or not _ACTIVE[-1].fold_trips:
+    """``range(n)``; under a counter that folds trips, a loop of more than
+    four trips runs indices 0 and 1, index 2 with its counts multiplied by
+    ``n - 3`` (the middle trips), and index ``n - 1``: FLOPs, bytes,
+    launches and collectives are those of ``n`` bodies, in the forward
+    pass and in the backward pass that autograd runs later, and the
+    reckoned peak is that of the unfolded loop (see the module's
+    docstring)."""
+    if n <= 4 or not _ACTIVE or not _ACTIVE[-1].fold_trips:
         return range(n)
     return _folded(_ACTIVE[-1], n)
 
 
+def _counterparts(survivors, made) -> list:
+    """The middle trip's storages that stand where the trip before it
+    left ``survivors`` alive (``(position, bytes)`` in the order that trip
+    made its storages): for each, the middle trip's storage of the same
+    bytes nearest its position (``made``: ``(position, bytes, id)``; the
+    two trips may make a storage more or less where a metadata cache
+    answers)."""
+    free: Dict[int, list] = {}
+    for j, n, ident in made:
+        free.setdefault(n, []).append((j, ident))
+    out = []
+    for j, n in survivors:
+        cands = free.get(n)
+        if cands:
+            best = min(range(len(cands)), key=lambda c: abs(cands[c][0] - j))
+            out.append(cands.pop(best)[1])
+    return out
+
+
 def _folded(counter: Counter, n: int):
-    mult = counter._mult
+    yield 0
+    before: list = []
+    counter._logs.append(before)
     try:
-        yield 0
-        counter._mult = mult * (n - 1)
         yield 1
     finally:
+        counter._logs.remove(before)
+    mult = counter._mult
+    mark = counter._middle_enter()
+    try:
+        counter._mult = mult * (n - 3)
+        yield 2
+    finally:
         counter._mult = mult
+    s0, extra, made = counter._middle_exit(mark, n - 3, before)
+    try:
+        yield n - 1
+    finally:                   # also where the last trip breaks the loop
+        if extra:
+            counter._hold(s0, extra, made)
 
+
+def fill_trips(items: list, n: int) -> list:
+    """The ``n`` values a loop over ``trips(n)`` collected, one a trip:
+    ``items`` itself, or after a folded loop its four entries with the
+    middle one repeated (detached) in the place of every middle trip."""
+    if len(items) == n:
+        return items
+    if len(items) != 4:
+        raise ValueError(f"{len(items)} values for {n} trips")
+    return items[:3] + [_detached(items[2])] * (n - 4) + [items[3]]
+
+
+def _detached(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach()
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_detached(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _detached(v) for k, v in obj.items()}
+    return obj
+
+
+_PROBE: List[torch.Tensor] = []
+_NO_NODE = 2 ** 63
+
+
+def _next_seq() -> int:
+    """The sequence number the next autograd node made on this thread
+    takes (a probe node is made, unseen by any dispatch mode)."""
+    with torch._C._DisableTorchDispatch(), torch.enable_grad():
+        if not _PROBE:
+            _PROBE.append(torch.zeros(1, requires_grad=True))
+        return _PROBE[0].view(-1).grad_fn._sequence_nr() + 1
+
+
+def _node_seq() -> Optional[int]:
+    """The sequence number of the autograd node the backward pass runs
+    now (None outside it, and for a leaf's gradient accumulator)."""
+    node = torch._C._current_autograd_node()
+    if node is None:
+        return None
+    seq = node._sequence_nr()
+    return None if seq >= _NO_NODE else seq

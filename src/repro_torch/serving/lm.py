@@ -40,15 +40,15 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as tfm
-from repro_torch.roofline.counter import trips
+from repro_torch.roofline.counter import fill_trips, trips
 
 
 @torch.no_grad()
 def decode_loop(params, cfg, tokens, gen: int, head_fn=None):
     """Greedy prefill + ``gen`` decode steps; the output head is ``head_fn``
     (dense when None). Returns the generated (B, gen) tokens. Under a
-    roofline counter two decode steps run, the second's counts multiplied
-    by ``gen - 1`` (``roofline/counter.py::trips``)."""
+    roofline counter more than four decode steps fold to four, the third
+    counted ``gen - 3`` times (``roofline/counter.py::trips``)."""
     logits, cache = tfm.prefill(params, cfg, tokens,
                                 max_len=tokens.shape[1] + gen,
                                 head_fn=head_fn)
@@ -58,7 +58,7 @@ def decode_loop(params, cfg, tokens, gen: int, head_fn=None):
         out.append(nxt)
         logits, cache = tfm.decode_step(params, cfg, cache, nxt,
                                         head_fn=head_fn)
-    return torch.cat(out, dim=1)
+    return torch.cat(fill_trips(out, gen), dim=1)
 
 
 def greedy_tokens(logits):

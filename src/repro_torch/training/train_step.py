@@ -6,11 +6,11 @@ and its gradient (``optimizer.value_and_grad``) and applies
 ``optimizer.adamw_update``. With ``accum_steps > 1`` the batch splits into
 that many microbatches along its first axis (``microbatch``); their losses and float32
 gradients are summed in order and divided by ``accum_steps``, as the
-reference's scan does. Under a roofline counter the microbatch loop runs
-two microbatches, the second counted ``accum_steps - 1`` times
+reference's scan does. Under a roofline counter a loop of more than four
+microbatches runs four, the third counted ``accum_steps - 3`` times
 (``roofline/counter.py::trips``), as the reference's analyzer multiplies
-its scan body by the trip count; the second sees the first's accumulator,
-so the reckoned peak is a later microbatch's.
+its scan body by the trip count; the later ones see the first's
+accumulator, so the reckoned peak is a later microbatch's.
 """
 from __future__ import annotations
 

@@ -256,39 +256,43 @@ def test_trips_multiply_the_body():
 
     def loop(a, b):
         out = []
-        for _ in C.trips(4):
+        for _ in C.trips(6):
             out.append(a @ b)
         return out
     folded = C.count(loop, a, b)
     unfolded = C.count(loop, a, b, fold_trips=False)
     one = C.count(torch.matmul, a, b)
-    assert folded.flops == unfolded.flops == 4 * one.flops
-    assert folded.hbm_bytes == unfolded.hbm_bytes == 4 * one.hbm_bytes
+    assert folded.flops == unfolded.flops == 6 * one.flops
+    assert folded.hbm_bytes == unfolded.hbm_bytes == 6 * one.hbm_bytes
+    assert folded.n_ops == 4 * one.n_ops         # trips 0, 1, 2 and 5
     assert list(C.trips(3)) == [0, 1, 2]          # no counter: range
 
 
 def test_accum_steps_4_counts_one_microbatch_times_four():
     cfg = get_config("stablelm-1.6b").reduced()
-    shape = ShapeConfig("t", 16, 4, "train")
+    shape = ShapeConfig("t", 16, 8, "train")
     counts = {}
-    for accum, fold in ((1, True), (4, True), (4, False)):
+    for accum, fold in ((1, True), (4, True), (4, False), (8, True),
+                        (8, False)):
         step, args, got = D.build_step(cfg, shape, accum_steps=accum)
         assert got == accum
         counts[accum, fold] = C.count(step, *args, fold_trips=fold)
     assert counts[4, True].flops == counts[4, False].flops \
+        == counts[8, True].flops == counts[8, False].flops \
         == counts[1, True].flops
-    # two microbatches of dispatches (trip 0, then trip 1 counted three
-    # times), not four
-    assert counts[4, True].n_ops < 0.6 * counts[4, False].n_ops
+    # a loop of four trips runs whole; of eight, four microbatches of
+    # dispatches (trips 0 and 1, trip 2 counted five times, trip 7)
+    assert counts[4, True].n_ops == counts[4, False].n_ops
+    assert counts[8, True].n_ops < 0.6 * counts[8, False].n_ops
 
 
-@pytest.mark.parametrize("accum", [2, 4])
+@pytest.mark.parametrize("accum", [2, 6])
 def test_folded_train_step_reckons_the_unfolded_peak(accum):
-    """The folded microbatch loop's second trip runs beside the first's
+    """The folded microbatch loop's later trips run beside the first's
     float32 gradient accumulator, so its reckoned peak is the unfolded
     loop's; FLOPs and bytes stay ``accum`` microbatches."""
     cfg = get_config("stablelm-1.6b").reduced()
-    shape = ShapeConfig("t", 16, 4, "train")
+    shape = ShapeConfig("t", 16, 12, "train")
     step, args, _ = D.build_step(cfg, shape, accum_steps=accum)
     step(*args)          # fills the process's rotary-table cache first
     folded = C.count(step, *args)
