@@ -22,6 +22,19 @@ Phases, each printing JSON lines:
    bank); at FC every bank-GEMM tile configuration, forced, bitwise equal
    to every other; at every scan shape ``sru_scan`` bitwise equal to lane
    0 of ``sru_scan_pop``;
+2a. kernel_rules: the kernel verifier (``repro_torch.analysis``) in
+   process, without the sanitizer: K0 every instantiation of the five
+   kernels enumerated from the sources and driven once through its wrapper
+   (lane counter and plain version); K1 every prototype's parameters of a
+   ctypes kind (``build.signatures`` reads the ctypes off them), the
+   library's bank tiles those read off the source (``BANK_CONFIGS``),
+   every grid re-derived and within CUDA's limits, the LM heads at the dry
+   run's one-card shapes included; K2 the menu indices of an SRU generation, a served step and an
+   xLSTM generation in range, one lane changed moving no other, an
+   out-of-range index poisoning only its own lane; K3 each instantiation's
+   registers, spills, shared memory and blocks an SM; K4 the packed layout
+   round trip and identity products value for value. One line a rule, one
+   an instantiation; fails on any finding or past ``KERNEL_RULES_S``;
 2b. contracts: the contract checker (``repro_torch.core.contracts``) on
    the SRU and xLSTM harnesses through ``bank_mxv_pop``, ``bank_qmm_pop``
    and ``sru_scan_pop`` at widths of 4-16: C1 (no weight requantized in a
@@ -191,9 +204,17 @@ Phases, each printing JSON lines:
    ``mamba_step``s (atol 0.05); the reckoned peak (under 75 GB); a 1 x
    10,240 prefill (the flash branch, 40 Mamba chunks) and 16 greedy steps
    with the dense head and the int8 head; prefill + decode against
-   ``forward`` at ``MOE_CAPACITY_FACTOR`` 8.0 (atol 0.25). Every int8 head
-   run is held to the plain version on its own hidden state (rtol 1e-4 /
-   atol 1e-3) and ``quant_matmul`` must launch once per head run; after
+   ``forward`` at ``MOE_CAPACITY_FACTOR`` 8.0 (atol 0.25) at every step
+   before the first whose routers pick other experts than the forward's,
+   a step whose smallest router margin must be below
+   ``serving.lm.GATE_DELTA``; the prefill and 8 decode steps at least.
+   Every int8 head run is held to the plain version on its own hidden state
+   (rtol 1e-4 / atol 1e-3) and, afterwards, to the dense head on the
+   same hidden state (VLM and hybrid): its logit error within the int8
+   rounding bound (``serving.lm.head_error_bound``), its greedy tokens the
+   dense head's up to the first position where the dense top-2 margin is
+   within the bound's reach, parting only there; ``quant_matmul`` must
+   launch once per head run; after
    the counts are read it is timed at both head shapes
    (``QMM_FAMILY_SHAPES``: CUDA-graph device time, byte bound, plain
    version, f32 ``matmul`` on the dequantized head);
@@ -313,6 +334,7 @@ LM_MESH_STEPS = 3            # lm_mesh's training steps at model degree 1
 QMM_SHAPES = {"head": (4, 2048, 100352),    # (M, K, N): the LM head
               "ragged": (5, 1037, 1001)}
 SLOS = ("premium", "standard", "economy")
+KERNEL_RULES_S = 15.0         # the kernel verifier's in-process budget
 TRAIN_STEPS = 400             # train_small_sru's default (the reference's)
 BEACON_STEPS = 60             # retraining steps a beacon (paper experiment 3)
 SEARCH_KW = dict(generations=2, pop=10, initial=40, seed=0)
@@ -320,18 +342,19 @@ SEARCH_KW = dict(generations=2, pop=10, initial=40, seed=0)
 # (steps of batch x seq tokens, AdamW at a constant lr after 10 warm-up
 # steps, TF32 products; xlstm_train_probe.py chose it, PERF.md), the
 # baseline val error it must reach, validation (4 subsets of batch x seq
-# next-token frames), retraining steps a beacon (20, not the SRU's 60: a
-# full-width retrain step takes ~0.6 s and the search may place 8
-# beacons), the lanes a comparison holds at once, and the beacon distance
-# threshold (the paper's 6 for the SRU's 6 searchable layers, scaled to
-# the xLSTM's 25)
+# next-token frames), retraining steps a beacon (10, not the SRU's 60: a
+# full-width retrain step takes ~0.5-1.1 s, the search places 8 beacons,
+# and a slow host took the script to 1,190 s of its 1,200 at 20;
+# tools/torch_retrain_steps.py runs the search at both budgets), the lanes
+# a comparison holds at once, and the beacon distance threshold (the
+# paper's 6 for the SRU's 6 searchable layers, scaled to the xLSTM's 25)
 XLSTM_ARCH = "xlstm-350m"
 XLSTM_BLOCKS = 24             # the config's depth, which the search runs
 XLSTM_TRAIN = dict(steps=240, batch=4096, seq=3, lr=1e-3,
                    schedule="constant", tf32=True)
 XLSTM_BASELINE_BAR = 90.0
 XLSTM_VAL = dict(val_batch=4, val_seq=64)
-XLSTM_RETRAIN_STEPS = 20
+XLSTM_RETRAIN_STEPS = 10
 XLSTM_LANES = 16
 XLSTM_DISTANCE = 25.0
 # bank_mxv_pop at the xLSTM's MxV shapes, (P, M, m, N) and bank rows: P = 64
@@ -845,6 +868,36 @@ def phase_kernels(dev):
             if label == "head" and bits == 8:
                 out["quant_matmul"] = a
     return out
+
+
+def phase_kernel_rules(dev):
+    """The kernel verifier (``repro_torch.analysis.kernel_rules``) in
+    process: K0-K4 over every instantiation of the five kernels. Emits one
+    line a rule with its counts and one an instantiation with its driven
+    result (launches, max abs error against the plain version) and
+    resources (registers, spill bytes, shared memory, blocks an SM); raises
+    on any finding or past ``KERNEL_RULES_S``. Its launches are
+    comparisons: no path's counts are open while it runs."""
+    import torch
+    from repro_torch.analysis import kernel_rules as kr
+    torch.cuda.synchronize()
+    findings, report = kr.run_kernel_checks(dev)
+    for rule in kr.RULES:
+        emit({"phase": "kernel_rules", "rule": rule, **{
+            k: v for k, v in report[rule].items()
+            if not isinstance(v, (list, dict))}})
+    driven = {r["instantiation"]: r for r in report["K0"]["driven"]}
+    for row in report["K3"]["instantiations"]:
+        emit({"phase": "kernel_rules", **row,
+              **driven.get(row["instantiation"], {})})
+    emit({"phase": "kernel_rules", "K2": report["K2"], "K4": report["K4"],
+          "seconds": report["seconds"]})
+    if findings:
+        raise AssertionError("kernel verifier findings on the card:\n" +
+                             "\n".join(f.format() for f in findings))
+    if report["seconds"] > KERNEL_RULES_S:
+        raise AssertionError(f"kernel_rules took {report['seconds']:.1f} s "
+                             f"> {KERNEL_RULES_S}")
 
 
 def phase_main_path(dev, work):
@@ -3704,36 +3757,43 @@ def tree_bytes(tree) -> int:
                for t in flatten_tree(tree).values())
 
 
-class RecordingHead:
-    """The int8 head as the path calls it, keeping each call's hidden
-    state and kernel output (``held_to_plain`` compares them afterwards
-    with the plain version, so no comparison launches the kernel)."""
+def recording_head(head):
+    """``serving.lm.RecordingHead`` over the int8 head, with
+    ``held_to_plain``: every run's kernel output against
+    ``quant_matmul_ref`` on the same hidden state, after the path ran (so
+    no comparison launches the kernel), rtol 1e-4 / atol 1e-3 (raises
+    otherwise); and ``held`` (``on_margins`` on the dense head, raising
+    where the head erred past its rounding bound or parted from the dense
+    head outside its reach)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.serving import lm
 
-    def __init__(self, head):
-        self.head, self.runs = head, []
+    class Recording(lm.RecordingHead):
+        def held_to_plain(self) -> dict:
+            worst = 0.0
+            for h, y in self.runs:
+                want = ref.quant_matmul_ref(h, self.head.packed,
+                                            self.head.scales, self.head.bits)
+                torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-3)
+                worst = max(worst, errs(y, want)[0])
+                del want
+            return {"head_runs": len(self.runs), "shape": [
+                self.runs[0][0].shape[0], *self.head.packed.shape],
+                "max_abs_err": worst, "tol": "rtol 1e-4, atol 1e-3"}
 
-    def __call__(self, hidden):
-        import torch
-        y = self.head(hidden)
-        self.runs.append((hidden.reshape(-1, hidden.shape[-1]).to(
-            torch.float32), y.reshape(-1, y.shape[-1])))
-        return y
-
-    def held_to_plain(self) -> dict:
-        """Every run's kernel output against ``quant_matmul_ref`` on the
-        same hidden state: rtol 1e-4 / atol 1e-3 (raises otherwise)."""
-        import torch
-        from repro_torch.kernels import ref
-        worst = 0.0
-        for h, y in self.runs:
-            want = ref.quant_matmul_ref(h, self.head.packed, self.head.scales,
-                                        self.head.bits)
-            torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-3)
-            worst = max(worst, errs(y, want)[0])
-            del want
-        return {"head_runs": len(self.runs), "shape": [
-            self.runs[0][0].shape[0], *self.head.packed.shape],
-            "max_abs_err": worst, "tol": "rtol 1e-4, atol 1e-3"}
+        def held(self, params, cfg, dense_tokens, quant_tokens) -> dict:
+            from repro_torch.models import transformer as tfm
+            out = self.on_margins(
+                tfm.logits_head_weight(params, cfg),
+                lambda h: tfm.logits_head(params, cfg, h), dense_tokens,
+                quant_tokens)
+            if not out["ok"]:
+                raise AssertionError(
+                    f"families: the int8 head erred past its rounding bound "
+                    f"or parted from the dense head outside its reach: {out}")
+            return out
+    return Recording(head)
 
 
 def greedy(prefill, decode, gen, bound=None, count_prefill=True,
@@ -3895,6 +3955,7 @@ def vlm_family(dev) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import synthetic
+    from repro_torch.models import transformer as tfm
     from repro_torch.models.registry import get_model
     from repro_torch.serving import lm
 
@@ -3930,7 +3991,7 @@ def vlm_family(dev) -> dict:
                              f"of ln V = {ln_v}")
     prompt = torch.randint(0, cfg.vocab_size, (VLM["batch"], VLM["prompt"]),
                            generator=g, device=dev)
-    head = RecordingHead(lm.int8_head(params, cfg))
+    head = recording_head(lm.int8_head(params, cfg))
     dense, _, d_prefill, d_ms = lm_greedy(params, cfg, prompt, VLM["gen"],
                                           bound=("families", "vlm_dense"))
     quant, _, q_prefill, q_ms = lm_greedy(params, cfg, prompt, VLM["gen"],
@@ -3943,7 +4004,8 @@ def vlm_family(dev) -> dict:
         "int8": {"prefill_s": q_prefill, "decode_ms_per_token": q_ms},
         "token_agreement": float((quant == dense).float().mean()),
         "first_token_agreement": float((quant[:, 0] == dense[:, 0]).float()
-                                       .mean())}
+                                       .mean()),
+        "held_on_margins": head.held(params, cfg, dense, quant)}
     out["head_vs_plain"] = head.held_to_plain()
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit({"phase": "families", "vlm": out})
@@ -4049,8 +4111,10 @@ def hybrid_family(dev) -> dict:
     (past ``DENSE_ATTN_MAX``: the attention layer runs the flash branch;
     40 Mamba chunks) and 16 greedy decode steps with the dense head and
     with the int8 head on ``quant_matmul`` (every head run held to the plain
-    version); then, at ``MOE_CAPACITY_FACTOR`` 8.0, prefill + decode
-    against ``forward`` (atol 0.25, the reference's hybrid bound)."""
+    version, its tokens held to the dense head's on margins); then, at
+    ``MOE_CAPACITY_FACTOR`` 8.0, prefill + decode against ``forward``
+    (atol 0.25, the reference's hybrid bound) held on router margins
+    (``serving.lm.decode_on_margins``)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -4085,7 +4149,7 @@ def hybrid_family(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(7)
     prompt = torch.randint(0, cfg.vocab_size, (1, P), generator=g,
                            device=dev)
-    head = RecordingHead(lm.int8_head(params, cfg))
+    head = recording_head(lm.int8_head(params, cfg))
     # the 10,240-token prefill (6.4 s) is not counted again: decode only
     dense, _, d_prefill, d_ms = lm_greedy(
         params, cfg, prompt, HYBRID["gen"],
@@ -4100,6 +4164,7 @@ def hybrid_family(dev) -> dict:
         "token_agreement": float((quant == dense).float().mean()),
         "first_token_agreement": float((quant[:, 0] == dense[:, 0]).float()
                                        .mean()),
+        "held_on_margins": head.held(params, cfg, dense, quant),
         "max_memory_allocated": torch.cuda.max_memory_allocated()}
     out["head_vs_plain"] = head.held_to_plain()
     del head
@@ -4109,25 +4174,41 @@ def hybrid_family(dev) -> dict:
         n, steps = HYBRID["check_prompt"], HYBRID["check_steps"]
         toks = torch.randint(0, cfg.vocab_size, (1, n + steps), generator=g,
                              device=dev)
-        with torch.no_grad():
+        with torch.no_grad(), lm.RouterLog() as fwd:
             full = tfm.forward(params, cfg, toks)
-        logits, cache = tfm.prefill(params, cfg, toks[:, :n],
-                                    max_len=n + steps)
-        outs = [logits[:, -1]]
+        with lm.RouterLog() as log:
+            logits, cache = tfm.prefill(params, cfg, toks[:, :n],
+                                        max_len=n + steps)
+        outs, logs, spans = [logits[:, -1]], [log], [(n - 1, n)]
         for i in range(n, n + steps - 1):
-            logits, cache = tfm.decode_step(params, cfg, cache,
-                                            toks[:, i:i + 1])
+            with lm.RouterLog() as log:
+                logits, cache = tfm.decode_step(params, cfg, cache,
+                                                toks[:, i:i + 1])
             outs.append(logits[:, -1])
+            logs.append(log)
+            spans.append((i, i + 1))
         check = decode_vs_forward(torch.stack(outs, 1),
                                   full[:, n - 1:n + steps - 1], 0.25)
     finally:
         cm.MOE_CAPACITY_FACTOR = saved
+    # held on router margins: bounded before the first step whose routers
+    # pick other experts than the forward's, which must be a near tie (its
+    # smallest top-k gate margin below lm.GATE_DELTA); at least the prefill
+    # and 8 decode steps must be bounded
+    flipped, margins = lm.step_routing(fwd, logs, spans)
+    held = lm.decode_on_margins(check["err_by_position"], margins, flipped,
+                                0.25)
+    # the prompt's other positions: reported (a pick that parts there moves
+    # the compared positions only through attention and the Mamba state)
+    held["prompt_routing"] = dict(zip(("flipped", "min_margin"), (
+        v[0] for v in lm.step_routing(fwd, logs[:1], [(0, n)]))))
     out["decode_vs_forward"] = {"prompt": n, "decode_steps": steps - 1,
-                                "capacity_factor": 8.0, **check}
+                                "capacity_factor": 8.0, **check,
+                                "held_on_margins": held}
     emit({"phase": "families", "hybrid": out})
-    if not check["max_abs_err"] <= 0.25:
+    if not held["ok"]:
         raise AssertionError(f"families hybrid: prefill + decode is off "
-                             f"forward: {check}")
+                             f"forward before a router near tie: {held}")
     del params, cache, full
     return out
 
@@ -4636,6 +4717,7 @@ def main() -> int:
 
     smi_line = timed("setup", phase_setup)
     max_err = timed("kernels", phase_kernels, dev)
+    timed("kernel_rules", phase_kernel_rules, dev)
     contract_counts = timed("contracts", phase_contracts, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)

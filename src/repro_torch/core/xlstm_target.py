@@ -107,7 +107,7 @@ def forward(params, cfg: ArchConfig, tokens, get_w, q_act,
     (the population forward). Returns f32 logits (..., B, T, V).
 
     ``jit_norms``: each norm after a residual add reads the float32 sum,
-    as the reference's jitted forward does (``xlstm.add_rms_norm``); False
+    as the reference's jitted forward does (``cm.add_rms_norm``); False
     reads the rounded bf16 sum, as its op-by-op calibration does."""
     x = tfm.embed_tokens(params, cfg, tokens)
     if lanes:
@@ -118,7 +118,7 @@ def forward(params, cfg: ArchConfig, tokens, get_w, q_act,
         if y is None:
             return x, cm.rms_norm(x, w, cfg.norm_eps)
         if jit_norms:
-            return xlstm.add_rms_norm(x, y, w, cfg.norm_eps)
+            return cm.add_rms_norm(x, y, w, cfg.norm_eps)
         x = x + y
         return x, cm.rms_norm(x, w, cfg.norm_eps)
 

@@ -57,7 +57,7 @@ struct Tile {
   static_assert(THREADS % BK == 0 && BM % (THREADS / BK) == 0, "A copies");
 };
 
-// The configurations (kernels/ops.py BANK_CONFIGS mirrors these numbers):
+// The configurations (kernels/ops.py reads BANK_CONFIGS off these lines):
 // 0: 128 x 128, 16 x 8 per thread, the search's large M; 1: 128 x 64,
 // 8 x 8 per thread, three blocks an SM, for shapes whose grid fills the card
 // better in smaller tiles (Pr, N = 256); 2: 16 x 64, the serving step (16

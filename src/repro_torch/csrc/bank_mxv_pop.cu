@@ -22,6 +22,7 @@
 #include <cuda_runtime.h>
 
 #include "bank_gemm.cuh"
+#include "kernel_attributes.cuh"
 
 namespace {
 
@@ -78,4 +79,23 @@ extern "C" int repro_bank_mxv_pop(const float* x, const float* bank,
 // a CUDA error for an unknown configuration.
 extern "C" int repro_bank_config_info(int config, int* out) {
   return static_cast<int>(bank_gemm::config_info(config, out));
+}
+
+// The records of kernel_attributes.cuh: configuration i / 3 at the copy
+// widths 16, 8 and 4 bytes (with_width's cases), its launch's shared
+// memory allowed first.
+cudaError_t kernel_attributes::bank_mxv_pop(int i, int* out) {
+  constexpr int widths[3] = {16, 8, 4};
+  if (i < 0) return cudaErrorInvalidValue;
+  return bank_gemm::with_config(i / 3, [&](auto cfg) {
+    using T = decltype(cfg);
+    return bank_gemm::with_width(widths[i % 3], [&](auto w) {
+      constexpr int W = decltype(w)::value;
+      const cudaError_t err =
+          bank_gemm::allow_smem<bank_mxv_pop_kernel<T, W>, T::SMEM>();
+      if (err != cudaSuccess) return err;
+      return fill(bank_mxv_pop_kernel<T, W>, BANK_MXV_POP, i / 3, W, 0,
+                  T::THREADS, T::SMEM, T::MIN_BLOCKS, out);
+    });
+  });
 }

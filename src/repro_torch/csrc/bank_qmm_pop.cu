@@ -32,6 +32,7 @@
 #include <stdint.h>
 
 #include "bank_gemm.cuh"
+#include "kernel_attributes.cuh"
 
 namespace {
 
@@ -192,6 +193,10 @@ struct PackedLoader {
   }
 };
 
+// Dynamic shared memory of a block: the rings, then the BN column scales.
+template <class T>
+constexpr int SMEM = T::SMEM + T::BN * 4;
+
 template <class T>
 __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
     bank_qmm_pop_kernel(const float* __restrict__ x,
@@ -247,14 +252,26 @@ extern "C" int repro_bank_qmm_pop(const float* x, const int8_t* q2,
                                   int width8, int width16, void* stream) {
   return static_cast<int>(bank_gemm::with_config(config, [&](auto cfg) {
     using T = decltype(cfg);
-    constexpr int SMEM = T::SMEM + T::BN * 4;  // the rings, the scales
     const cudaError_t err =
-        bank_gemm::allow_smem<bank_qmm_pop_kernel<T>, SMEM>();
+        bank_gemm::allow_smem<bank_qmm_pop_kernel<T>, SMEM<T>>();
     if (err != cudaSuccess) return err;
     bank_qmm_pop_kernel<T><<<bank_gemm::grid_for<T>(P, M, N), T::THREADS,
-                             SMEM, static_cast<cudaStream_t>(stream)>>>(
+                             SMEM<T>, static_cast<cudaStream_t>(stream)>>>(
         x, q2, q4, q8, q16, scale, scale_cols, idx, out, M, m, N, width8,
         width16);
     return cudaGetLastError();
   }));
+}
+
+// The records of kernel_attributes.cuh: configuration i, its launch's
+// shared memory allowed first.
+cudaError_t kernel_attributes::bank_qmm_pop(int i, int* out) {
+  return bank_gemm::with_config(i, [&](auto cfg) {
+    using T = decltype(cfg);
+    const cudaError_t err =
+        bank_gemm::allow_smem<bank_qmm_pop_kernel<T>, SMEM<T>>();
+    if (err != cudaSuccess) return err;
+    return fill(bank_qmm_pop_kernel<T>, BANK_QMM_POP, i, 0, 0, T::THREADS,
+                SMEM<T>, T::MIN_BLOCKS, out);
+  });
 }

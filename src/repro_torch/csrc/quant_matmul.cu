@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_attributes.cuh"
+
 namespace {
 
 constexpr int WARPS = 4;
@@ -440,6 +442,13 @@ cudaError_t launch(const float* x, const int8_t* packed, const float* scales,
   return cudaGetLastError();
 }
 
+template <int BITS, int MT, bool VEC>
+cudaError_t attributes(int* out) {
+  return kernel_attributes::fill(quant_matmul_kernel<BITS, MT, VEC>,
+                                 kernel_attributes::QUANT_MATMUL, BITS, MT,
+                                 VEC, THREADS, 0, Shape<MT>::MIN_BLOCKS, out);
+}
+
 template <int BITS, int MT>
 cudaError_t occupancy(int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -480,4 +489,20 @@ extern "C" int repro_quant_matmul_occupancy(int M, int N, int bits,
   out[0] = ((N + BN - 1) / BN) * ((M + mt - 1) / mt);
   out[1] = blocks;
   return 0;
+}
+
+// The records of kernel_attributes.cuh: every (bits, rows a block, vector
+// loads) that repro_quant_matmul can launch, in that order.
+cudaError_t kernel_attributes::quant_matmul(int i, int* out) {
+  using A = cudaError_t (*)(int*);
+  constexpr A records[] = {
+      attributes<2, 4, true>,  attributes<2, 4, false>,
+      attributes<2, 8, true>,  attributes<2, 8, false>,
+      attributes<4, 4, true>,  attributes<4, 4, false>,
+      attributes<4, 8, true>,  attributes<4, 8, false>,
+      attributes<8, 4, true>,  attributes<8, 4, false>,
+      attributes<8, 8, true>,  attributes<8, 8, false>};
+  if (i < 0 || i >= static_cast<int>(sizeof(records) / sizeof(records[0])))
+    return cudaErrorInvalidValue;
+  return records[i](out);
 }

@@ -48,9 +48,12 @@
 // same lane of a population launch.
 #include <cuda_runtime.h>
 
+#include "kernel_attributes.cuh"
+
 namespace {
 
 constexpr int TC = 8;              // time steps a prefetch stage
+constexpr int BLOCK = 256;         // threads a block
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -138,10 +141,18 @@ extern "C" int repro_sru_scan_pop(const float* uw, const float* uf,
                                   float* r, float* c_last, int P, int B, int T,
                                   int n, void* stream) {
   const long long PB = static_cast<long long>(P) * B;
-  const int block = 256;
-  const long long grid = (PB * n + block - 1) / block;
-  sru_scan_pop_kernel<<<static_cast<unsigned>(grid), block, 0,
+  const long long grid = (PB * n + BLOCK - 1) / BLOCK;
+  sru_scan_pop_kernel<<<static_cast<unsigned>(grid), BLOCK, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       uw, uf, ur, ld, vf, vr, bf, br, h, r, c_last, PB, T, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The record of kernel_attributes.cuh: the one instantiation (no launch
+// bounds: a minimum of 1 block an SM).
+cudaError_t kernel_attributes::sru_scan_pop(int i, int* out) {
+  if (i != 0) return cudaErrorInvalidValue;
+  return kernel_attributes::fill(sru_scan_pop_kernel,
+                                 kernel_attributes::SRU_SCAN_POP, 0, 0, 0,
+                                 BLOCK, 0, 1, out);
 }

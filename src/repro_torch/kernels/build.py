@@ -14,13 +14,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -29,21 +30,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
-# C signatures of csrc/*.cu: every pointer and the stream are c_void_p, or
-# ctypes would pass them as 32-bit ints
-SIGNATURES = {
-    "repro_sru_scan_pop": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _P],
-    "repro_bank_mxv_pop": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "repro_bank_qmm_pop": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _P],
-    "repro_bank_config_info": [_I, _P],
-    "repro_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_quant_matmul_occupancy": [_I, _I, _I, _P],
-}
+# The ctypes of the C entries' parameter kinds: every pointer, the stream
+# included, is c_void_p, or ctypes would pass it as a 32-bit int
+CTYPES = {"ptr": ctypes.c_void_p, "int": ctypes.c_int,
+          "long long": ctypes.c_longlong}
+_PROTOTYPE = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -65,6 +56,44 @@ def nvcc_path() -> str:
 
 def sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def param_kind(param: str) -> str:
+    """"ptr", "int" or "long long" for a C parameter, else its text."""
+    p = " ".join(param.split())
+    if "*" in p:
+        return "ptr"
+    if re.search(r"\blong\s+long\b", p):
+        return "long long"
+    if re.match(r"(const\s+)?int\s+\w+$", p):
+        return "int"
+    return p
+
+
+def prototypes(csrc: Path = CSRC) -> Dict[str, Tuple[Path, int, tuple]]:
+    """Every ``extern "C" int name(...)`` of ``csrc/*.cu``: name -> (file,
+    line, its parameters' ``param_kind``s in order)."""
+    out = {}
+    for f in sorted(csrc.glob("*.cu")):
+        text = f.read_text()
+        for m in _PROTOTYPE.finditer(text):
+            params = [p for p in m.group(2).split(",") if p.strip()]
+            out[m.group(1)] = (f, text.count("\n", 0, m.start()) + 1,
+                               tuple(param_kind(p) for p in params))
+    return out
+
+
+def signatures(csrc: Path = CSRC) -> Dict[str, list]:
+    """Each C entry's ctypes ``argtypes``, read off its prototype; raises
+    on a parameter whose kind has no ctypes (``CTYPES``)."""
+    out = {}
+    for name, (f, line, kinds) in prototypes(csrc).items():
+        bad = [k for k in kinds if k not in CTYPES]
+        if bad:
+            raise ValueError(f"{f}:{line}: {name} has parameters of no "
+                             f"ctypes kind: {bad}")
+        out[name] = [CTYPES[k] for k in kinds]
+    return out
 
 
 def _digest(nvcc: str) -> str:
@@ -128,11 +157,12 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with every C
-    function's ``argtypes`` and ``restype`` declared."""
+    function's ``argtypes`` (read off its prototype) and ``restype``
+    declared."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name, args in SIGNATURES.items():
+        for name, args in signatures().items():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int

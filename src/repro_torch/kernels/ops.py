@@ -32,7 +32,9 @@ import contextlib
 import ctypes
 import functools
 import math
-from typing import Dict, NamedTuple, Optional
+import re
+from pathlib import Path
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -342,12 +344,26 @@ class BankConfig(NamedTuple):
         return 4 * self.stages * (self.bk * (self.bm + 4) + self.bk * self.bn)
 
 
-# In bank_gemm.cuh's order (Config0, Config1, Config2)
-BANK_CONFIGS = (
-    BankConfig(128, 128, 16, 16, 4, 128, 2),   # the search: 1536 rows/lane
-    BankConfig(128, 64, 16, 8, 3, 128, 3),     # the same, smaller tiles
-    BankConfig(16, 64, 16, 2, 4, 64, 8),       # the serving step: 16 rows
-)
+def bank_configs(csrc: Path = build.CSRC) -> Tuple[BankConfig, ...]:
+    """The tile configurations of ``csrc/bank_gemm.cuh``, read off its
+    ``using ConfigN = Tile<BM, BN, TM, STAGES, MIN_BLOCKS>`` lines in N's
+    order, with its ``BK`` and ``Tile::THREADS`` = (BN / 8) (BM / TM)."""
+    text = (csrc / "bank_gemm.cuh").read_text()
+    bk = int(re.search(r"\bBK\s*=\s*(\d+)", text).group(1))
+    found = sorted(
+        tuple(int(v) for v in m.groups()) for m in re.finditer(
+            r"using\s+Config(\d+)\s*=\s*Tile<\s*(\d+)\s*,\s*(\d+)\s*,"
+            r"\s*(\d+)\s*,\s*(\d+)\s*,\s*(\d+)\s*>", text))
+    if [i for i, *_ in found] != list(range(len(found))) or not found:
+        raise ValueError(f"bank_gemm.cuh: configurations {found} are not "
+                         "Config0, Config1, ... in turn")
+    return tuple(BankConfig(bm, bn, bk, tm, stages, (bn // 8) * (bm // tm),
+                            mb) for _, bm, bn, tm, stages, mb in found)
+
+
+# Config0: the search, 1536 rows a lane; Config1: the same in smaller
+# tiles; Config2: the serving step, 16 rows
+BANK_CONFIGS = bank_configs()
 SMEM_PER_BLOCK = 232448          # H100: 227 KB of dynamic shared memory
 SMALL_M = 32                     # rows per lane up to which 16-row tiles win
 # The 128 x 64 tile's cost per output against the 128 x 128 tile's, fitted
@@ -410,8 +426,9 @@ def _bank_config_for(name, dev, P, M, N, config):
 
 def bank_config_info(config: int) -> BankConfig:
     """Configuration ``config`` as the built library holds it, read back to
-    hold ``BANK_CONFIGS`` to the CUDA source; raises if the library's
-    shared-memory size is not ``BankConfig.smem_bytes``."""
+    hold ``BANK_CONFIGS`` (read off the source) to what was compiled;
+    raises if the library's shared-memory size is not
+    ``BankConfig.smem_bytes``."""
     out = (ctypes.c_int * 8)()
     err = build.load().repro_bank_config_info(config, ctypes.cast(
         out, ctypes.c_void_p))

@@ -26,6 +26,7 @@ mesh both are no-ops.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional
@@ -108,6 +109,19 @@ def rms_norm(x, w, eps: float = 1e-5):
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def add_rms_norm(x, y, w, eps: float = 1e-5):
+    """(x + y, rms_norm(x + y, w)) for bf16 ``x`` and ``y`` as the reference
+    computes them under ``jax.jit`` on the CPU: XLA evaluates the bf16 add
+    in float32 and, allowing excess precision, feeds that float32 sum to
+    the norm unrounded; only the sum it keeps for the next residual add is
+    rounded to bf16. (Op by op, outside ``jit``, the norm sees the rounded
+    sum: ``rms_norm(x + y, w)``.) Every block whose residual sum feeds a
+    norm takes it so: the xLSTM's pairs, the decoder, Mamba and
+    encoder-decoder blocks."""
+    h = x.to(torch.float32) + y.to(torch.float32)
+    return h.to(x.dtype), rms_norm(h, w, eps).to(x.dtype)
 
 
 def normal_init(generator: torch.Generator, shape, scale,
@@ -484,6 +498,21 @@ def moe_axes(n_shared):
     return p
 
 
+_ROUTER_OBSERVERS: list = []
+
+
+@contextlib.contextmanager
+def observe_routers(fn):
+    """Call ``fn(gates, top_k)`` at every ``moe_ffn`` inside the block, with
+    its router's (B, T, E) f32 softmax gates (a check reads the routing
+    margins so; with none registered this costs one list test)."""
+    _ROUTER_OBSERVERS.append(fn)
+    try:
+        yield fn
+    finally:
+        _ROUTER_OBSERVERS.remove(fn)
+
+
 def _normalized_top_k(gates, top_k: int):
     """The top-k gates (ties to the lower expert) over their sum."""
     topw, topi = torch.topk(gates, top_k, dim=-1)
@@ -567,6 +596,8 @@ def moe_ffn(p, x, *, top_k: int, group_size: int = 0,
     groups = shard(flat.reshape(n_groups, S, D), None, "batch", "embed")
     gates = torch.softmax(torch.matmul(groups.to(torch.float32), p["router"]),
                           dim=-1)                                # (G,S,E)
+    for fn in _ROUTER_OBSERVERS:
+        fn(gates.reshape(n_groups * S, E)[:N].reshape(B, T, E), top_k)
     if MOE_DISPATCH == "gather":
         topw, topi = _normalized_top_k(gates, top_k)
         w_se = torch.zeros_like(gates).scatter(-1, topi, topw)

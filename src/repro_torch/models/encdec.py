@@ -12,7 +12,8 @@ with no RoPE) and an MLP. Params keep the reference's layout (``enc``
 Serving: ``init_cache`` holds the decoder's self-attention KV cache and
 the encoder's output; ``decode_step`` updates the cache in place and, as
 the reference does, recomputes every layer's cross K/V from the cached
-``enc_out`` at each step.
+``enc_out`` at each step. A residual sum that feeds a norm reaches it
+in float32 (``common.py::add_rms_norm``), as in the jitted reference.
 """
 from __future__ import annotations
 
@@ -91,8 +92,8 @@ def _enc_block(bp, cfg, h, positions):
     hn = cm.rms_norm(h, bp["norm1"], cfg.norm_eps)
     q, k, v = cm.attn_qkv(bp["attn"], hn, positions, cfg.rope_theta)
     o = cm.gqa_attention(q, k, v, causal=False)
-    h = h + cm.attn_out(bp["attn"], o)
-    hn = cm.rms_norm(h, bp["norm2"], cfg.norm_eps)
+    h, hn = cm.add_rms_norm(h, cm.attn_out(bp["attn"], o), bp["norm2"],
+                            cfg.norm_eps)
     return h + cm.mlp(bp["ffn"], hn)
 
 
@@ -128,15 +129,15 @@ def _dec_block(bp, cfg, h, enc_out, positions, self_k=None, self_v=None,
         o = cm.gqa_attention(q, self_k, self_v, q_offset=cur,
                              kv_valid=cur + 1, chunk_q=1 << 30,
                              chunk_k=1 << 30)
-    h = h + cm.attn_out(bp["attn"], o)
     # cross attention: no RoPE
-    hn = cm.rms_norm(h, bp["norm_x"], cfg.norm_eps)
+    h, hn = cm.add_rms_norm(h, cm.attn_out(bp["attn"], o), bp["norm_x"],
+                            cfg.norm_eps)
     qx = cm._proj_heads(hn, bp["xattn"]["wq"])
     kx = cm._proj_heads(enc_out, bp["xattn"]["wk"])
     vx = cm._proj_heads(enc_out, bp["xattn"]["wv"])
     ox = cm.gqa_attention(qx, kx, vx, causal=False)
-    h = h + cm.attn_out(bp["xattn"], ox)
-    hn = cm.rms_norm(h, bp["norm2"], cfg.norm_eps)
+    h, hn = cm.add_rms_norm(h, cm.attn_out(bp["xattn"], ox), bp["norm2"],
+                            cfg.norm_eps)
     return h + cm.mlp(bp["ffn"], hn)
 
 

@@ -27,6 +27,11 @@ params keep the reference's stacks, ``params["mamba_blocks"]`` (G, P - 1,
 reads one Mamba block), and its cache adds the Mamba states, ``ssm``:
 ``h`` (G, P - 1, B, d_inner, N) f32 and ``conv`` (G, P - 1, B, K - 1,
 d_inner) bf16.
+
+Every block's second norm reads the float32 residual sum and only the
+sum kept for the next residual add is rounded to bf16
+(``common.py::add_rms_norm``), as XLA computes the reference's jitted
+blocks.
 """
 from __future__ import annotations
 
@@ -196,8 +201,8 @@ def attn_block_fwd(p, cfg: ArchConfig, x, positions, kv=None):
     if kv is not None:
         kv["k"], kv["v"] = k, v
     o = cm.gqa_attention(q, k, v, causal=True)
-    x = x + cm.attn_out(p["attn"], o)
-    h = cm.rms_norm(x, p["norm2"], cfg.norm_eps)
+    x, h = cm.add_rms_norm(x, cm.attn_out(p["attn"], o), p["norm2"],
+                           cfg.norm_eps)
     return x + apply_ffn(p["ffn"], cfg, h)
 
 
@@ -217,12 +222,11 @@ def mamba_block_fwd(p, cfg: ArchConfig, x, state=None):
     Mamba's decode state after the last step, for the prefill cache."""
     h = cm.rms_norm(x, p["norm1"], cfg.norm_eps)
     if state is None:
-        x = x + mb.mamba_fwd(p["mamba"], cfg, h)
+        y = mb.mamba_fwd(p["mamba"], cfg, h)
     else:
         y, st = mb.mamba_fwd(p["mamba"], cfg, h, return_state=True)
         state.update(st)
-        x = x + y
-    h = cm.rms_norm(x, p["norm2"], cfg.norm_eps)
+    x, h = cm.add_rms_norm(x, y, p["norm2"], cfg.norm_eps)
     return x + apply_ffn(p["ffn"], cfg, h)
 
 
@@ -233,8 +237,7 @@ def mamba_block_decode(p, cfg: ArchConfig, x, ssm_h, ssm_conv):
     y, st = mb.mamba_step(p["mamba"], cfg, h, {"h": ssm_h, "conv": ssm_conv})
     ssm_h.copy_(st["h"])
     ssm_conv.copy_(st["conv"])
-    x = x + y
-    h = cm.rms_norm(x, p["norm2"], cfg.norm_eps)
+    x, h = cm.add_rms_norm(x, y, p["norm2"], cfg.norm_eps)
     return x + apply_ffn(p["ffn"], cfg, h)
 
 
@@ -250,8 +253,8 @@ def attn_block_decode(p, cfg: ArchConfig, x, cache_k, cache_v, cur: int):
     o = cm.gqa_attention(q, _cache_load(cache_k, q.dtype),
                          _cache_load(cache_v, q.dtype), q_offset=cur,
                          kv_valid=cur + 1, chunk_q=1 << 30, chunk_k=1 << 30)
-    x = x + cm.attn_out(p["attn"], o)
-    h = cm.rms_norm(x, p["norm2"], cfg.norm_eps)
+    x, h = cm.add_rms_norm(x, cm.attn_out(p["attn"], o), p["norm2"],
+                           cfg.norm_eps)
     return x + apply_ffn(p["ffn"], cfg, h)
 
 

@@ -396,21 +396,10 @@ def params_to_numpy(tree) -> Dict:
     return cm.tree_map(cm.tensor_to_numpy, tree)
 
 
-def add_rms_norm(x, y, w, eps: float = 1e-5):
-    """(x + y, rms_norm(x + y, w)) for bf16 ``x`` and ``y`` as the reference
-    computes them under ``jax.jit`` on the CPU: XLA evaluates the bf16 add
-    in float32 and, allowing excess precision, feeds that float32 sum to
-    the norm unrounded; only the sum it keeps for the next residual add is
-    rounded to bf16. (Op by op, outside ``jit``, the norm sees the rounded
-    sum: ``cm.rms_norm(x + y, w)``.)"""
-    h = x.to(torch.float32) + y.to(torch.float32)
-    return h.to(x.dtype), cm.rms_norm(h, w, eps).to(x.dtype)
-
-
 def _pairs_fwd(params, cfg: ArchConfig, x, states=None):
     """The pairs over a whole sequence. The reference scans over them, so
     the residual it carries from pair to pair is rounded to bf16, and only
-    the sum inside a pair reaches its norm unrounded (``add_rms_norm``).
+    the sum inside a pair reaches its norm unrounded (``cm.add_rms_norm``).
     ``states``: a list that receives each pair's final (mLSTM, sLSTM)
     state."""
     for g in trips(cfg.n_layers // 2):
@@ -421,7 +410,7 @@ def _pairs_fwd(params, cfg: ArchConfig, x, states=None):
                       return_state=keep)
         if keep:
             y, mst = y
-        x, xin = add_rms_norm(x, y, bp["norm_s"], cfg.norm_eps)
+        x, xin = cm.add_rms_norm(x, y, bp["norm_s"], cfg.norm_eps)
         y = slstm_fwd(bp["slstm"], cfg, xin, return_state=keep)
         if keep:
             y, sst = y
@@ -469,7 +458,7 @@ def decode_step(params, cfg: ArchConfig, cache, token):
     """One decode step. token: (B, 1) integer. Returns (logits (B, 1, V),
     cache): the state's tensors are updated in place and ``cur`` advances
     by one. The residual adds and norms are taken as in ``forward``
-    (``add_rms_norm``), as the reference's jitted ``decode_step`` does."""
+    (``cm.add_rms_norm``), as the reference's jitted ``decode_step`` does."""
     x = tfm.embed_tokens(params, cfg, token)
     for g in trips(cfg.n_layers // 2):
         bp = pair(params, g)
@@ -477,7 +466,7 @@ def decode_step(params, cfg: ArchConfig, cache, token):
         sst = {k: v[g] for k, v in cache["slstm"].items()}
         y, mst = mlstm_step(bp["mlstm"], cfg,
                             cm.rms_norm(x, bp["norm_m"], cfg.norm_eps), mst)
-        x, xin = add_rms_norm(x, y, bp["norm_s"], cfg.norm_eps)
+        x, xin = cm.add_rms_norm(x, y, bp["norm_s"], cfg.norm_eps)
         y, sst = slstm_step(bp["slstm"], cfg, xin, sst)
         x = x + y
         for name, new in (("mlstm", mst), ("slstm", sst)):

@@ -140,8 +140,8 @@ def test_wbits_decode_of_the_hybrid_matches_the_reference(bits):
         tparams = TT.params_from_numpy(jax.tree.map(np.asarray, rparams),
                                        "cpu")
         # tests/test_torch_hybrid.py's prompt (B 2, 8 + 4 tokens); another
-        # draw, rng(1) of (2, 9), parts the dense prefill by 0.80 already
-        # (ROADMAP fault 11)
+        # draw, rng(1) of (2, 9), parted the dense prefill by 0.80 while the
+        # port's norms read the bf16 residual sum (ROADMAP fault 11, fixed)
         tokens = np.random.default_rng(1).integers(
             0, rcfg.vocab_size, (2, 12)).astype(np.int32)[:, :9]
         rq = RQ.quantize_tree(rparams, bits)

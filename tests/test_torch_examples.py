@@ -85,10 +85,52 @@ def test_mohaq_search_xlstm():
 
 
 def test_serve_quantized():
+    """The int8 head's logit error stays within its rounding bound
+    (``serving.lm.head_error_bound``), and its greedy tokens equal the
+    dense head's up to the first position where the dense top-2 margin is
+    within the bound's reach, and part only there (seeded random weights
+    can put two logits on an exact bf16 tie)."""
     out = _load("torch_serve_quantized").main(["--device", "cpu"])
-    assert out["tokens_match"]
+    held = out["held_on_margins"]
+    assert held["ok"], held
+    assert held["first_differing"] is None or (
+        held["first_tie"] is not None
+        and held["first_differing"] >= held["first_tie"])
     assert out["served"]["n_completed"] == 6
     assert out["quant_matmul_launches"] == 0     # no kernel on the CPU
+
+
+@pytest.mark.parametrize("fault", ["scales_x1.1", "clip_0.8"])
+def test_serve_quantized_bound_fails_a_wrong_head(fault):
+    """The margin check has teeth: an int8 head whose scales are 10 % off,
+    or whose clip cuts the largest 20 % of the range, errs past the
+    rounding bound (``serving.lm.head_error_bound``) on the example's
+    model, prompt and decode, and ``on_margins`` fails it; the right head
+    stays within the bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import lm
+    cfg = get_config("stablelm-1.6b").reduced()
+    params = tfm.init_lm(0, cfg, torch.device("cpu"))
+    w = tfm.logits_head_weight(params, cfg).to(torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    dense = lm.decode_loop(params, cfg, tokens, 8)
+    amax = float(w.abs().max())
+    right = kops.pack_for_kernel(w, 8, amax)
+    wrong = {"scales_x1.1": (right[0], right[1] * 1.1),
+             "clip_0.8": kops.pack_for_kernel(w, 8, 0.8 * amax)}[fault]
+    held = {}
+    for name, (packed, scales) in (("right", right), ("wrong", wrong)):
+        rec = lm.RecordingHead(lm.QuantHead(packed, scales, 8))
+        quant = lm.decode_loop(params, cfg, tokens, 8, head_fn=rec)
+        held[name] = rec.on_margins(
+            w, lambda h: tfm.logits_head(params, cfg, h), dense, quant)
+    assert held["right"]["ok"] and held["right"]["max_error_share"] <= 1.0
+    assert not held["wrong"]["ok"], held["wrong"]
+    assert held["wrong"]["max_error_share"] > 1.0
 
 
 def test_examples_need_a_card_by_default():

@@ -10,7 +10,7 @@ grids (the port's token streams and initial weights differ from the
 reference's: numpy and ``torch.Generator`` against threefry).
 
 The reference runs jitted on the CPU, where XLA keeps the float32 sum of a
-bf16 residual add that feeds a norm (``models/xlstm.py::add_rms_norm``);
+bf16 residual add that feeds a norm (``models/common.py::add_rms_norm``);
 the port follows it, so the population logits agree within ~1e-6 in most
 lanes. A lane can still diverge where a bf16 rounding before a coarse grid
 falls the other way (the norms sum in another order). Decisions are held
