@@ -7,7 +7,8 @@ Phases, each printing JSON lines:
 
 1. setup: build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
    per source, all at once, then one link; each command's seconds and
-   their sum, what one source after another would take, are printed),
+   their sum, what one source after another would take, are printed;
+   the checked build of phase 2a compiles beside it, in a thread),
    print every bank-kernel instantiation's registers, spill bytes and
    shared memory and every scan and ``quant_matmul`` instantiation's
    registers and spill bytes (from ``build.log``'s ptxas lines), the blocks
@@ -34,7 +35,14 @@ Phases, each printing JSON lines:
    out-of-range index poisoning only its own lane; K3 each instantiation's
    registers, spills, shared memory and blocks an SM; K4 the packed layout
    round trip and identity products value for value. One line a rule, one
-   an instantiation; fails on any finding or past ``KERNEL_RULES_S``;
+   an instantiation; fails on any finding or past ``KERNEL_RULES_S``.
+   Then K2's bounds half: the checked build of the kernels
+   (``csrc/checked.cuh``, built in a background thread started by setup)
+   runs every driver, the ragged cases and the large shapes that fit, each
+   held to the default library's output and to no out-of-bounds global or
+   shared access; one line a case (violations, equal, seconds) and one
+   with the build's seconds; fails on any violation or difference, or past
+   ``CHECKED_PASS_S``;
 2b. contracts: the contract checker (``repro_torch.core.contracts``) on
    the SRU and xLSTM harnesses through ``bank_mxv_pop``, ``bank_qmm_pop``
    and ``sru_scan_pop`` at widths of 4-16: C1 (no weight requantized in a
@@ -335,6 +343,7 @@ QMM_SHAPES = {"head": (4, 2048, 100352),    # (M, K, N): the LM head
               "ragged": (5, 1037, 1001)}
 SLOS = ("premium", "standard", "economy")
 KERNEL_RULES_S = 15.0         # the kernel verifier's in-process budget
+CHECKED_PASS_S = 20.0         # its checked pass's, past the build's wait
 TRAIN_STEPS = 400             # train_small_sru's default (the reference's)
 BEACON_STEPS = 60             # retraining steps a beacon (paper experiment 3)
 SEARCH_KW = dict(generations=2, pop=10, initial=40, seed=0)
@@ -639,9 +648,31 @@ def errs(got, want):
 
 # ------------------------------------------------------------------ phases
 
+CHECKED_BUILD = {}            # the checked build's thread, result, seconds
+
+
+def start_checked_build():
+    """Build the checked library in a background thread, so that its
+    ``nvcc`` runs overlap the phases before ``kernel_rules``."""
+    import threading
+    from repro_torch.kernels import build
+
+    def run():
+        t = time.perf_counter()
+        try:
+            CHECKED_BUILD["library"] = build.build(checked=True)
+        except Exception as e:          # raised where the pass waits
+            CHECKED_BUILD["error"] = e
+        CHECKED_BUILD["seconds"] = time.perf_counter() - t
+
+    CHECKED_BUILD["thread"] = threading.Thread(target=run, daemon=True)
+    CHECKED_BUILD["thread"].start()
+
+
 def phase_setup():
     import torch
     from repro_torch.kernels import build, ops
+    start_checked_build()       # its nvcc runs beside the default build's
     t0 = time.perf_counter()
     lib = build.build()
     build.load()
@@ -898,6 +929,33 @@ def phase_kernel_rules(dev):
     if report["seconds"] > KERNEL_RULES_S:
         raise AssertionError(f"kernel_rules took {report['seconds']:.1f} s "
                              f"> {KERNEL_RULES_S}")
+    checked_pass(dev)
+
+
+def checked_pass(dev):
+    """K2's bounds half (``kernel_rules.check_bounds``) through the checked
+    build that ``phase_setup`` started: one line a case, then one with the
+    build's seconds, the wait for it and the pass's; raises on any finding
+    or past ``CHECKED_PASS_S`` (the wait not counted)."""
+    from repro_torch.analysis import kernel_rules as kr
+    t = time.perf_counter()
+    CHECKED_BUILD["thread"].join()
+    wait_s = time.perf_counter() - t
+    if "error" in CHECKED_BUILD:
+        raise CHECKED_BUILD["error"]
+    findings, report = kr.check_bounds(
+        dev, emit=lambda row: emit({"phase": "kernel_rules", "checked": True,
+                                    **row}))
+    emit({"phase": "kernel_rules", "checked": True,
+          "build_s": CHECKED_BUILD["seconds"], "wait_s": wait_s,
+          **{k: v for k, v in report.items() if k not in ("rows",
+                                                           "build_s")}})
+    if findings:
+        raise AssertionError("checked build findings on the card:\n" +
+                             "\n".join(f.format() for f in findings))
+    if report["seconds"] > CHECKED_PASS_S:
+        raise AssertionError(f"the checked pass took {report['seconds']:.1f}"
+                             f" s > {CHECKED_PASS_S}")
 
 
 def phase_main_path(dev, work):

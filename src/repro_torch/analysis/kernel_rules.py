@@ -27,13 +27,26 @@ anchor to the ``csrc`` line that adds what they are about.
       largest population), gets a grid re-derived from the sources that
       stays inside CUDA's limits (x < 2^31, y and z <= 65,535); on a card
       the library's tile configurations are the ones read off the source.
-- K2  index and lane discipline (card): every menu index of the bank calls
-      of one SRU generation, one served SRU step and one xLSTM generation
-      (the contract harnesses, through ``ops.observe_launches``) lies in
-      [0, K); changing one lane's index and inputs (one row of x for
-      ``quant_matmul``) leaves every other lane bitwise the same at a
-      population that is not a multiple of a tile; an out-of-range index
-      fills only its own lane with NaN.
+- K2  index, lane and bounds discipline. Without a card: every global and
+      shared access of the device code goes through ``csrc/checked.cuh``'s
+      accessors (an indexed pointer parameter, local pointer or shared
+      array, a unary dereference, ``__ldg``, ``cp_async`` or an L2
+      prefetch written raw is a finding at its line), and each kernel
+      source's ``enum Param`` names its C entry's pointer parameters in
+      order (the checked build's extents follow it). On a card: every menu
+      index of the bank calls of one SRU generation, one served SRU step
+      and one xLSTM generation (the contract harnesses, through
+      ``ops.observe_launches``) lies in [0, K); changing one lane's index
+      and inputs (one row of x for ``quant_matmul``) leaves every other
+      lane bitwise the same at a population that is not a multiple of a
+      tile; an out-of-range index fills only its own lane with NaN. The
+      bounds half (``check_bounds``, ``--checked``) runs the drivers, the
+      ragged cases (``ragged_cases``) and the large shapes that fit on the
+      card through the checked build (``build.checked``), where every
+      access is held to its parameter's or shared array's extent: each must
+      record no violation and equal the default library's output (bitwise
+      for the bank kernels and the scan); a violation is a finding at the
+      ``csrc`` line of its access.
 - K3  resources (card): ``repro_kernel_attributes`` gives each
       instantiation's registers, local bytes, static and dynamic shared
       memory and the blocks an SM holds at its launch; static plus dynamic
@@ -50,8 +63,9 @@ anchor to the ``csrc`` line that adds what they are about.
 
 ``run_kernel_checks(device)`` returns ``(findings, report)``; on the CPU it
 runs the static rules (K0's enumeration and dispatch keys, K1's
-prototypes and grids, K4's round trips), on a card all of them. The
-sanitizer pass (``python -m repro_torch.analysis --sanitize``) re-runs the
+prototypes and grids, K2's accessors and parameter enums, K4's round
+trips), on a card all of them; ``check_bounds(device)`` is the checked
+build's pass. The sanitizer pass (``python -m repro_torch.analysis --sanitize``) re-runs the
 drivers under ``compute-sanitizer``. Nothing here imports the reference
 package.
 """
@@ -67,7 +81,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
 
 REPO = Path(__file__).resolve().parents[3]
 CSRC = build.CSRC
@@ -78,7 +92,7 @@ RTOL, ATOL = 1e-4, 1e-3
 # chip_smoke.py's setup lines read 0 spill stores and loads); a spill in
 # any other is a finding
 KNOWN_SPILLS: Dict[tuple, int] = {}
-KERNEL_IDS = ("bank_mxv_pop", "bank_qmm_pop", "quant_matmul", "sru_scan_pop")
+KERNEL_IDS = tuple(ops.KERNEL_IDS)     # in kernel_attributes.cuh's order
 RULES = ("K0", "K1", "K2", "K3", "K4")
 
 
@@ -324,10 +338,10 @@ def drivers() -> Tuple[Driver, ...]:
 
 
 def _menu_weight(m: int, N: int, gen: torch.Generator):
-    """A (m, N) weight, its menu triples, and both banks (f32, packed),
-    with the most negative code of every grid present."""
+    """A (m, N) weight on ``gen``'s device and its menu triples, with the
+    most negative code of every grid present."""
     from repro_torch.core import quantization as Q
-    w = torch.randn((m, N), generator=gen) / m ** 0.5
+    w = torch.randn((m, N), generator=gen, device=gen.device) / m ** 0.5
     w[0, :4] = -w.abs().max() * 4
     amax = float(w.abs().max())
     trips = Q.menu_triples(Q.SUPPORTED_BITS, lambda b: amax if b == 16
@@ -335,28 +349,33 @@ def _menu_weight(m: int, N: int, gen: torch.Generator):
     return w, trips
 
 
-def driver_inputs(d: Driver, device, seed: int = 0):
-    """(args, kwargs) of the wrapper call of driver ``d`` on ``device``."""
+def driver_inputs(d: Driver, device, seed: int = 0, draw_on="cpu"):
+    """(args, kwargs) of the wrapper call of driver ``d`` on ``device``,
+    drawn from a generator on ``draw_on`` (the CPU; the card for the large
+    shapes)."""
     from repro_torch.core import quantization as Q
     from repro_torch.kernels import ops
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=draw_on).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+
     s, key = d.shape, dict(d.key)
     if d.kernel == "sru_scan_pop":
         P, B, T, n = s["P"], s["B"], s["T"], s["n"]
-        u = torch.randn((P, B, T, 3 * n), generator=gen).to(device)
-        vecs = [(torch.randn((n,), generator=gen) * 0.5).to(device)
-                for _ in range(4)]
+        u = randn(P, B, T, 3 * n).to(device)
+        vecs = [(randn(n) * 0.5).to(device) for _ in range(4)]
         return (u[..., :n], u[..., n:2 * n], u[..., 2 * n:], *vecs), {}
     if d.kernel == "quant_matmul":
-        w = torch.randn((s["K"], s["N"]), generator=gen) / s["K"] ** 0.5
+        w = randn(s["K"], s["N"]) / s["K"] ** 0.5
         packed, scales = ops.pack_for_kernel(w, key["bits"],
                                              float(w.abs().max()))
-        x = torch.randn((s["M"], s["K"]), generator=gen)
+        x = randn(s["M"], s["K"])
         return (x.to(device), packed.to(device), scales.to(device),
                 key["bits"]), {}
     P, M, m, N = s["P"], s["M"], s["m"], s["N"]
     w, trips = _menu_weight(m, N, gen)
-    x = torch.randn((P, M, m), generator=gen).to(device)
+    x = randn(P, M, m).to(device)
     idx = torch.tensor([p % 4 for p in range(P)], dtype=torch.int32,
                        device=device)
     if d.kernel == "bank_qmm_pop":
@@ -864,6 +883,395 @@ def check_packing_on_card(device) -> Tuple[List[Finding], dict]:
     return out, report
 
 
+# ------------------------------------------------------------------ K2, static
+
+# the types that device code points at
+_POINTEE = (r"(?:float[24]?|int|unsigned(?:\s+int)?|u?int(?:8|16|32)_t|"
+            r"char|void|uint[24])")
+_PTR_DECL = re.compile(r"(?:\bconst\s+)?\b" + _POINTEE + r"\s*\*\s*"
+                       r"(?:const\s+)?(?:__restrict__\s+)?([A-Za-z_]\w*)"
+                       r"\s*(=\s*&?\s*\w*|[,;)\[])")
+_SHARED_DECL = re.compile(r"__shared__[^;]*?\b([A-Za-z_]\w*)\s*\[")
+_RAW_CALLS = ((re.compile(r"\b__ldg\s*\("), "__ldg"),
+              (re.compile(r"\bcp_async\s*<[^<>]*>\s*\("), "cp_async"))
+_PREFETCH = re.compile(r"prefetch\.global")     # in an asm string
+ACCESSORS = ("CK_LD", "CK_LDG", "CK_ST", "CK_SH_LD", "CK_SH_ST",
+             "CK_CP_ASYNC", "CK_PREFETCH")
+
+
+def _blank(text: str) -> str:
+    """``text`` with comments and string literals blanked (newlines kept,
+    so offsets keep their lines)."""
+    def blank(m):
+        return re.sub(r"[^\n]", " ", m.group(0))
+    return re.sub(r'//[^\n]*|/\*.*?\*/|"(?:\\.|[^"\\\n])*"', blank, text,
+                  flags=re.S)
+
+
+def _close(text: str, i: int) -> int:
+    """The offset just past the bracket that closes the one at ``i``."""
+    pairs = {"{": "}", "(": ")"}
+    want, depth = pairs[text[i]], 0
+    for j in range(i, len(text)):
+        if text[j] == text[i]:
+            depth += 1
+        elif text[j] == want:
+            depth -= 1
+            if depth == 0:
+                return j + 1
+    raise ValueError("unbalanced source")
+
+
+def _is_product(before: str) -> bool:
+    """Whether a ``*`` after ``before`` (stripped) multiplies or declares:
+    it follows an operand, but not the ``)`` of an ``if``/``for``/``while``
+    header."""
+    if not before or not (before[-1].isalnum() or before[-1] in "_)]>"):
+        return False
+    if before[-1] != ")":
+        return True
+    depth = 0
+    for j in range(len(before) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(before[j], 0)
+        if depth == 0:
+            return not re.search(r"\b(?:if|for|while|switch)\s*$",
+                                 before[:j])
+    return True
+
+
+def _device_functions(text: str):
+    """(head, body offset, body) of every ``__device__``/``__global__``
+    function definition of blanked ``text``."""
+    out = []
+    for m in re.finditer(r"\b__(?:device|global)__\b", text):
+        j = m.end()
+        depth = 0
+        while j < len(text):
+            ch = text[j]
+            if ch == "(":
+                depth += 1
+            elif ch == ")":
+                depth -= 1
+            elif depth == 0 and ch in ";{":
+                break
+            j += 1
+        if j < len(text) and text[j] == "{":
+            out.append((text[m.start():j], j, text[j:_close(text, j)]))
+    return out
+
+
+def _struct_members(text: str) -> List[Tuple[int, int, set]]:
+    """(start, end, pointer members) of every struct of blanked ``text``."""
+    out = []
+    for m in re.finditer(r"\bstruct\s+\w+[^;{]*\{", text):
+        start = m.end() - 1
+        end = _close(text, start)
+        body = text[start + 1:end - 1]
+        flat = re.sub(r"\{[^{}]*\}", "", body)      # method bodies out
+        while re.search(r"\{[^{}]*\}", flat):
+            flat = re.sub(r"\{[^{}]*\}", "", flat)
+        names = {g.group(1) for g in _PTR_DECL.finditer(flat)
+                 if g.group(2).strip() in (";", ",")}
+        out.append((start, end, names))
+    return out
+
+
+def _pointer_names(head: str, body: str, members: set) -> set:
+    """The names in scope of one device function that point at memory:
+    its pointer parameters, the members of its struct, its shared arrays
+    and its local pointers, but not a local pointer set from the address of
+    a register array (``&acc[i][j]``)."""
+    names = set(members)
+    names |= {g.group(1) for g in _PTR_DECL.finditer(head)}
+    names |= {g.group(1) for g in _SHARED_DECL.finditer(body)}
+    for g in _PTR_DECL.finditer(body):
+        init = g.group(2).replace(" ", "")
+        if init.startswith("=&") and init[2:] not in names:
+            continue                          # an alias of registers
+        names.add(g.group(1))
+    return names
+
+
+def raw_accesses(path: Path) -> List[Tuple[int, str]]:
+    """(line, what) of every raw global or shared access in the device
+    code of one source file: an indexed pointer (not ``&p[i]``), a unary
+    dereference of a pointer or a cast, and ``__ldg``, ``cp_async`` or an
+    L2 prefetch written outside ``checked.cuh``'s accessors."""
+    raw = path.read_text()
+    text = _blank(raw)
+    structs = _struct_members(text)
+    out = []
+    for head, off, body in _device_functions(text):
+        members = set().union(*(n for s, e, n in structs if s < off < e))
+        names = _pointer_names(head, body, members)
+        hits = []
+        for m in re.finditer(r"\b([A-Za-z_]\w*)\s*\[", body):
+            if m.group(1) in names and not re.search(
+                    r"&\s*$", body[:m.start()]) and not re.search(
+                    r"(__shared__|" + _POINTEE + r")[^;=]*$",
+                    body[:m.start()]):
+                hits.append((m.start(), f"{m.group(1)}[...]"))
+        for m in re.finditer(r"\*\s*(reinterpret_cast\b|\(|[A-Za-z_]\w*)",
+                             body):
+            if _is_product(body[:m.start()].rstrip()):
+                continue
+            what = m.group(1)
+            if what in ("reinterpret_cast", "(") or what in names:
+                hits.append((m.start(), f"*{what}"))
+        for pattern, what in _RAW_CALLS:
+            hits += [(m.start(), what) for m in pattern.finditer(body)]
+        hits += [(m.start(), "L2 prefetch") for m in _PREFETCH.finditer(
+            raw[off:off + len(body)])]
+        out += [(_line_of(text, off + pos), what) for pos, what in hits]
+    return sorted(set(out))
+
+
+def check_accessors(csrc: Path = CSRC) -> Tuple[List[Finding], dict]:
+    """K2 without a card: every global and shared access of the device
+    code of ``csrc/*.cu*`` goes through ``checked.cuh``'s accessors (a raw
+    access is a finding at its line; ``checked.cuh`` itself is where they
+    are written), and each kernel source's ``enum Param`` lists its C
+    entry's pointer parameters, uppercased, in order."""
+    out, sites = [], 0
+    for f in sorted(Path(csrc).glob("*.cu*")):
+        if f.name == "checked.cuh":
+            continue
+        sites += len(re.findall(r"\b(?:" + "|".join(ACCESSORS) + r")\s*\(",
+                                _blank(f.read_text())))
+        for line, what in raw_accesses(f):
+            out.append(Finding("K2", _rel(f), line, f"raw access {what}: not "
+                               "through checked.cuh's accessors"))
+    protos = build.prototypes(csrc)
+    for kernel in KERNEL_IDS:
+        f = Path(csrc) / f"{kernel}.cu"
+        text = f.read_text()
+        m = re.search(r"enum\s+Param\s*\{([^}]*)\}", text)
+        want = [p.upper() for p in pointer_params(csrc, kernel)]
+        if m is None:
+            path, line = plan_site = (_rel(f), 1)
+            out.append(Finding("K2", path, line, f"{kernel}: no enum Param "
+                               f"(want {want})"))
+            continue
+        got = [v.strip() for v in m.group(1).split(",") if v.strip()]
+        if got != want:
+            out.append(Finding("K2", _rel(f), _line_of(text, m.start()),
+                               f"{kernel}: enum Param {got} is not the C "
+                               f"entry's pointer parameters {want}"))
+    return out, {"accessor_sites": sites, "sources": len(
+        list(Path(csrc).glob("*.cu*"))), "entries_checked": len(
+            [k for k in KERNEL_IDS if f"repro_{k}" in protos])}
+
+
+def pointer_params(csrc: Path, kernel: str) -> List[str]:
+    """The pointer parameters of ``repro_<kernel>``'s prototype in order,
+    the stream left out: the order of the checked build's extents."""
+    text = (Path(csrc) / f"{kernel}.cu").read_text()
+    m = next(m for m in build._PROTOTYPE.finditer(text)
+             if m.group(1) == f"repro_{kernel}")
+    names = []
+    for param in m.group(2).split(","):
+        param = " ".join(param.split())
+        name = re.search(r"(\w+)$", param).group(1)
+        if "*" in param and name != "stream":
+            names.append(name)
+    return names
+
+
+# ------------------------------------------------------------------ K2, bounds
+
+RECORD = 13                     # csrc/checked.cuh's ck::RECORD
+CHECKED_FREE_SHARE = 0.8        # a large case runs if it needs less of the card
+
+
+def ragged_cases() -> List[Driver]:
+    """Shapes that are multiples of no tile, for the checked pass: the bank
+    GEMM at M 133 (BM 128 and 16), m 37 (BK 16), N 197 (BN 128 and 64; odd,
+    so the f32 rows' copies fall to 4 bytes and the int8 containers' loads
+    to 1) with five lanes (the last bank row selected), and at 1 x 1 x 1;
+    ``quant_matmul`` past one x slice with x staged by element (K % 4 != 0)
+    and by 16-byte loads, with the packed rows' vector loads off (N % 8 !=
+    0) and on; the scan at T = 1 and at T 17 (past two prefetch stages)
+    with P B n no multiple of the block."""
+    out = []
+    for c in range(len(ops.BANK_CONFIGS)):
+        for shape in ({"P": 5, "M": 133, "m": 37, "N": 197, "K": 4},
+                      {"P": 5, "M": 1, "m": 1, "N": 1, "K": 4}):
+            out.append(Driver("bank_mxv_pop", (("config", c), ("width", 4)),
+                              shape))
+            out.append(Driver("bank_qmm_pop", (("config", c),), shape))
+    for bits in (2, 4, 8):
+        out.append(Driver("quant_matmul", (("bits", bits), ("mt", 8),
+                                           ("vec", False)),
+                          {"M": 5, "K": 1036, "N": 1001}))
+        out.append(Driver("quant_matmul", (("bits", bits), ("mt", 4),
+                                           ("vec", True)),
+                          {"M": 3, "K": 2053, "N": 520}))
+    out.append(Driver("sru_scan_pop", (), {"P": 1, "B": 1, "T": 1, "n": 1}))
+    out.append(Driver("sru_scan_pop", (), {"P": 2, "B": 3, "T": 17,
+                                           "n": 301}))
+    return out
+
+
+def large_cases() -> List[Tuple[Driver, str]]:
+    """``large_shapes()`` as drivers with their labels: the LM heads at
+    int8 (the heads' width), the bank GEMM at the copy width of an aligned
+    bank, the scan."""
+    plan = launch_plan()
+    out = []
+    for kernel, key, shape, label in large_shapes():
+        if kernel == "quant_matmul":
+            key = (("bits", 8), ("mt", qmm_rows(plan, shape["M"])),
+                   ("vec", shape["N"] % (plan.qmm_bn // 32) == 0))
+        elif kernel == "bank_mxv_pop":
+            key = (("config", key["config"]),
+                   ("width", ops.copy_width(4 * shape["N"])))
+            shape = {**shape, "K": 4}
+        elif kernel == "bank_qmm_pop":
+            key = (("config", key["config"]),)
+        else:
+            key = ()
+        out.append((Driver(kernel, key, shape), label.strip(" ()")))
+    return out
+
+
+def case_bytes(d: Driver) -> int:
+    """Device bytes a case holds at once: its inputs and two outputs (the
+    default library's and the checked one's)."""
+    s = d.shape
+    if d.kernel == "sru_scan_pop":
+        e = s["P"] * s["B"] * s["T"] * s["n"]
+        return 4 * (3 * e + 2 * (2 * e + s["P"] * s["B"] * s["n"]))
+    if d.kernel == "quant_matmul":
+        return (4 * s["M"] * s["K"] + 5 * s["K"] * s["N"]
+                + 8 * s["M"] * s["N"])
+    x = 4 * s["P"] * s["M"] * s["m"]
+    w = 4 * s["m"] * s["N"] * (2 + 4)        # w and its four bank rows
+    return x + w + 8 * s["P"] * s["M"] * s["N"]
+
+
+def read_record(lib) -> dict:
+    """``repro_checked_report``'s record (the checked build's violations
+    since the last read), decoded; the record is cleared."""
+    out = (ctypes.c_longlong * RECORD)()
+    err = lib.repro_checked_report(ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"repro_checked_report: error {err}")
+    names = {file_id(f.name): f.name for f in CSRC.glob("*.cu*")}
+    return {"violations": out[0], "kernel": KERNEL_IDS[out[1]]
+            if 0 <= out[1] < len(KERNEL_IDS) else None, "line": out[2],
+            "param": out[3], "offset": out[4], "width": out[5],
+            "extent": out[6], "itemsize": out[7],
+            "block": [out[8], out[9], out[10]], "thread": out[11],
+            "file": names.get(out[12] & 0xFFFFFFFF, f"file {out[12]:#x}")}
+
+
+def file_id(name: str) -> int:
+    """``checked.cuh``'s ``ck::file_id``: 32-bit FNV-1a of a file name."""
+    h = 2166136261
+    for byte in name.encode():
+        h = ((h ^ byte) * 16777619) & 0xFFFFFFFF
+    return h
+
+
+def _violation(rec: dict, csrc: Path, label: str) -> Finding:
+    kernel = rec["kernel"]
+    params = pointer_params(csrc, kernel) if kernel else []
+    what = (params[rec["param"]] if 0 <= rec["param"] < len(params)
+            else "shared memory")
+    size = max(rec["itemsize"], 1)
+    return Finding("K2", _rel(Path(csrc) / rec["file"]), rec["line"],
+                   f"{kernel} ({label}): {rec['violations']} out-of-bounds "
+                   f"access(es); the first: {what}, "
+                   f"{rec['width']} bytes at element {rec['offset'] // size} "
+                   f"(byte {rec['offset']}) of an extent of "
+                   f"{rec['extent'] // size} elements, block "
+                   f"{tuple(rec['block'])} thread {rec['thread']}")
+
+
+def check_bounds(device, csrc: Path = CSRC, cases=None, emit=None
+                 ) -> Tuple[List[Finding], dict]:
+    """K2's bounds half on the card: each case ((driver, label) pairs; by
+    default ``drivers()``, ``ragged_cases()`` and every ``large_cases()``
+    one whose bytes fit in ``CHECKED_FREE_SHARE`` of the free memory) runs
+    once through the default library and once through the checked build of
+    ``csrc``. A recorded violation is a finding at its access; so is an
+    output that differs (bitwise for the bank kernels and the scan, past
+    ``RTOL``/``ATOL`` for ``quant_matmul``). ``emit(row)`` gets each case's
+    row as it ends."""
+    t0 = time.perf_counter()
+    build.build(checked=True, csrc=csrc)
+    build_s = time.perf_counter() - t0
+    if cases is None:
+        cases = ([(d, "driver") for d in drivers()]
+                 + [(d, "ragged") for d in ragged_cases()]
+                 + large_cases())
+    out, rows, skipped = [], [], []
+    with build.checked(csrc) as lib:
+        read_record(lib)                      # nothing left from before
+    default = build.load()
+    if default.repro_checked_report(ctypes.cast(
+            (ctypes.c_longlong * RECORD)(), ctypes.c_void_p)) \
+            != build.UNCHECKED:
+        path, line = _find(Path(csrc), "checked.cu",
+                           r"int repro_checked_report")
+        out.append(Finding("K2", path, line, "the default library's "
+                           "repro_checked_report is not unchecked"))
+    for d, label in cases:
+        if label not in ("driver", "ragged"):
+            torch.cuda.empty_cache()        # the last case's blocks back
+            free = torch.cuda.mem_get_info(device)[0]
+            if case_bytes(d) > CHECKED_FREE_SHARE * free:
+                skipped.append({"case": d.name, "label": label,
+                                "bytes": case_bytes(d), "free": free})
+                continue
+        t = time.perf_counter()
+        try:
+            args, kwargs = driver_inputs(
+                d, device, draw_on="cpu" if label in ("driver", "ragged")
+                else device)
+            fn = getattr(ops, d.kernel)
+            want = _as_tuple(fn(*args, **kwargs))
+            with build.checked(csrc) as lib:
+                got = _as_tuple(fn(*args, **kwargs))
+                rec = read_record(lib)
+        except Exception as e:          # a crash is a finding, not an exit
+            path, line = _find(Path(csrc), f"{d.kernel}.cu",
+                               r'extern "C" int repro_')
+            out.append(Finding("K2", path, line, f"{d.name} ({label}) "
+                               f"crashed: {e!r}"))
+            rows.append({"case": d.name, "label": label, "shape": d.shape,
+                         "error": repr(e)})
+            if emit is not None:
+                emit(rows[-1])
+            continue
+        if d.kernel == "quant_matmul":
+            equal = all(torch.allclose(g, w, rtol=RTOL, atol=ATOL)
+                        for g, w in zip(got, want))
+        else:
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        row = {"case": d.name, "label": label, "shape": d.shape,
+               "violations": rec["violations"], "equal": equal,
+               "seconds": time.perf_counter() - t}
+        rows.append(row)
+        if emit is not None:
+            emit(row)
+        if rec["violations"]:
+            out.append(_violation(rec, csrc, f"{d.name}, {label}"))
+        if not equal:
+            path, line = _find(Path(csrc), f"{d.kernel}.cu",
+                               r'extern "C" int repro_')
+            out.append(Finding("K2", path, line, f"{d.name} ({label}): the "
+                               "checked build's output differs from the "
+                               "default library's"))
+        del args, want, got
+    return out, {"build_s": build_s, "cases": len(rows),
+                 "violations": sum(r.get("violations", 0) for r in rows),
+                 "unequal": sum(r.get("equal") is False for r in rows),
+                 "crashed": sum("error" in r for r in rows),
+                 "skipped": skipped, "rows": rows,
+                 "seconds": time.perf_counter() - t0}
+
+
 # ------------------------------------------------------------------ runner
 
 def run_drivers(device, driver_list=None) -> Tuple[List[Finding],
@@ -904,6 +1312,9 @@ def run_kernel_checks(device="cpu") -> Tuple[List[Finding], dict]:
     found["K1"] += check_interface() + check_launch_plans(plan, launches)
     report["K1"] = {"prototypes": len(build.prototypes()),
                     "launch_plans": len(launches)}
+    f, static = check_accessors()
+    found["K2"] += f
+    report["K2"].update(static)
     found["K4"] += check_packing()
     if card:
         with torch.cuda.device(device):

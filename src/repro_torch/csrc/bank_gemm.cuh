@@ -33,8 +33,14 @@
 //   base pointer: N = 1650 floats is 8-byte aligned only, and the wrappers
 //   pad nothing. Ragged M, N and m are masked here (zero-filled copies,
 //   masked stores).
+// - Every global and shared access goes through checked.cuh's accessors;
+//   the kernel names the parameter of each global one (XP, SRCP, OUTP:
+//   its index in the kernel's C entry). In the checked build each ring
+//   slot is also filled with NaN between its last read and its next copy.
 #pragma once
 #include <cuda_runtime.h>
+
+#include "checked.cuh"
 
 namespace bank_gemm {
 
@@ -96,14 +102,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copies (BM x BK) tiles of row-major `src` (rows x cols), rows row0 on,
+// Copies (BM x BK) tiles of row-major `src` (rows x cols, parameter XP of
+// the kernel), rows row0 on,
 // into k-major stages (dst[k * AST + r]), transposed on the way: one 4-byte
 // copy per element, a row's 16 k values to 16 neighbouring threads.
 // Elements outside the matrix are zero-filled. Transposing here lets the
 // inner loop read a thread's rows as float4s, 6 shared reads per 128 FMAs.
 // Built once per block, so each K tile costs a pointer step and a copy per
 // element.
-template <class T>
+template <class T, int XP>
 struct ACopier {
   static constexpr int STEP = T::THREADS / T::BK, COPIES = T::BM / STEP;
   static_assert(COPIES <= 32, "one bit per copy");
@@ -132,18 +139,19 @@ struct ACopier {
 #pragma unroll
     for (int i = 0; i < COPIES; ++i, p += step) {
       const bool ok = k_ok && ((rows_ok >> i) & 1u);
-      cp_async<4>(dst + dst0 + i * STEP, ok ? p : src, ok ? 4 : 0);
+      CK_CP_ASYNC(4, XP, dst + dst0 + i * STEP, ok ? p : src, ok ? 4 : 0);
     }
   }
 };
 
-// Copies (BK x BN) tiles of row-major `src` (rows x cols), columns col0 on,
+// Copies (BK x BN) tiles of row-major `src` (rows x cols, parameter SRCP
+// of the kernel), columns col0 on,
 // into stages of row stride BN floats, W bytes per copy; the caller
 // guarantees that W divides cols * 4 and the base pointer's alignment, so a
 // W-byte vector lies wholly inside the matrix or wholly outside (then it is
 // zero-filled). A B loader for gemm_tile: the copies land by themselves, so
 // put has nothing to do.
-template <class T, int W>
+template <class T, int W, int SRCP>
 struct BCopier {
   static constexpr int VW = W / 4, VPR = T::BN / VW, STEP = T::THREADS / VPR;
   static_assert(T::THREADS % VPR == 0 && T::BK % STEP == 0, "B copies");
@@ -170,19 +178,21 @@ struct BCopier {
 #pragma unroll
     for (int i = 0; i < T::BK / STEP; ++i, p += step) {
       const bool ok = col_ok && k0 + r + i * STEP < rows;
-      cp_async<W>(dst + dst0 + i * STEP * T::BN, ok ? p : src, ok ? W : 0);
+      CK_CP_ASYNC(W, SRCP, dst + dst0 + i * STEP * T::BN, ok ? p : src,
+                  ok ? W : 0);
     }
   }
 };
 
-// x: this lane's (M, m) activations; out: its (M, N) output; smem: the
-// dynamic shared memory (T::SMEM bytes). The B loader has
+// x: this lane's (M, m) activations (parameter XP of the kernel); out: its
+// (M, N) output (parameter OUTP); smem: the dynamic shared memory (T::SMEM
+// bytes). The B loader has
 //   fetch(float* slot, int k0): start the reads of the K tile at k0
 //     (cp.async into slot, or loads into registers);
 //   put(float* slot, int k0): finish it (nothing, or dequantize the held
 //     registers into slot). put runs after the current stage's FMAs, so
 //     the loads' latency hides behind them.
-template <class T, class BLoader>
+template <class T, int XP, int OUTP, class BLoader>
 __device__ __forceinline__ void gemm_tile(const float* __restrict__ x,
                                           float* __restrict__ out, int M,
                                           int m, int N, BLoader& load_b,
@@ -193,7 +203,7 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ x,
   const int tx = tid % T::TX, ty = tid / T::TX;
   const int row0 = blockIdx.y * T::BM, col0 = blockIdx.x * T::BN;
   const int ktiles = (m + T::BK - 1) / T::BK;
-  const ACopier<T> copy_a(x, M, m, row0);
+  const ACopier<T, XP> copy_a(x, M, m, row0);
 
 #pragma unroll
   for (int s = 0; s < T::STAGES - 1; ++s) {
@@ -218,6 +228,13 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ x,
     __syncthreads();  // stage t landed; every thread is done with stage t-1
     const int nt = t + T::STAGES - 1;
     float* b_next = Bs + (nt % T::STAGES) * T::B_STAGE;
+#ifdef REPRO_CHECKED
+    // slot nt % STAGES was stage t - 1's, whose readers all passed the
+    // barrier: NaN until its next copy lands, so an early read shows
+    ck::poison(As + (nt % T::STAGES) * T::A_STAGE, T::A_STAGE);
+    ck::poison(b_next, T::B_STAGE);
+    __syncthreads();
+#endif
     if (nt < ktiles) {
       copy_a.copy(As + (nt % T::STAGES) * T::A_STAGE, nt * T::BK);
       load_b.fetch(b_next, nt * T::BK);
@@ -233,17 +250,18 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ x,
       for (int g = 0; g < T::TM / T::GA; ++g) {
         const float* p = a_s + kk * T::AST + g * T::TY * T::GA;
         if constexpr (T::GA == 4) {
-          const float4 v = *reinterpret_cast<const float4*>(p);
+          const float4 v = CK_SH_LD(reinterpret_cast<const float4*>(p));
           a[4 * g] = v.x; a[4 * g + 1] = v.y; a[4 * g + 2] = v.z;
           a[4 * g + 3] = v.w;
         } else {
-          const float2 v = *reinterpret_cast<const float2*>(p);
+          const float2 v = CK_SH_LD(reinterpret_cast<const float2*>(p));
           a[2 * g] = v.x; a[2 * g + 1] = v.y;
         }
       }
       const float* brow = b_s + kk * T::BN;
-      const float4 b0 = *reinterpret_cast<const float4*>(brow);
-      const float4 b1 = *reinterpret_cast<const float4*>(brow + T::BN / 2);
+      const float4 b0 = CK_SH_LD(reinterpret_cast<const float4*>(brow));
+      const float4 b1 =
+          CK_SH_LD(reinterpret_cast<const float4*>(brow + T::BN / 2));
       const float b[T::TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int i = 0; i < T::TM; ++i)
@@ -266,27 +284,29 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ x,
       const int gc = col0 + h * (T::BN / 2) + tx * 4;
       const float* v = &acc[i][h * 4];
       if (vec && gc + 3 < N) {
-        *reinterpret_cast<float4*>(orow + gc) =
-            make_float4(v[0], v[1], v[2], v[3]);
+        CK_ST(OUTP, reinterpret_cast<float4*>(orow + gc),
+              make_float4(v[0], v[1], v[2], v[3]));
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (gc + j < N) orow[gc + j] = v[j];
+          if (gc + j < N) CK_ST(OUTP, orow + (gc + j), v[j]);
       }
     }
   }
 }
 
-// Fills this block's output tile with NaN: the lane's menu index was out of
-// range, and a visible NaN beats reading another allocation's memory.
-template <class T>
+// Fills this block's output tile (parameter OUTP) with NaN: the lane's menu
+// index was out of range, and a visible NaN beats reading another
+// allocation's memory.
+template <class T, int OUTP>
 __device__ __forceinline__ void poison_tile(float* __restrict__ out, int M,
                                             int N) {
   const int row0 = blockIdx.y * T::BM, col0 = blockIdx.x * T::BN;
   for (int e = threadIdx.x; e < T::BM * T::BN; e += T::THREADS) {
     const int gr = row0 + e / T::BN, gc = col0 + e % T::BN;
     if (gr < M && gc < N)
-      out[static_cast<long long>(gr) * N + gc] = __int_as_float(0x7fc00000);
+      CK_ST(OUTP, out + (static_cast<long long>(gr) * N + gc),
+            __int_as_float(0x7fc00000));
   }
 }
 

@@ -22,9 +22,13 @@
 #include <cuda_runtime.h>
 
 #include "bank_gemm.cuh"
+#include "checked.cuh"
 #include "kernel_attributes.cuh"
 
 namespace {
+
+// The C entry's pointer parameters, in order (checked.cuh's extents).
+enum Param { X, BANK, IDX, OUT };
 
 template <class T, int W>
 __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
@@ -33,18 +37,21 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
                         const int* __restrict__ idx, float* __restrict__ out,
                         int M, int m, int N, int K) {
   extern __shared__ float4 smem[];
+  CK_SHARED_ARRAY(smem, T::SMEM);
   const int p = blockIdx.z;
-  const int sel = idx[p];
+  const int sel = CK_LD(IDX, idx + p);
   float* lane_out = out + static_cast<long long>(p) * M * N;
   if (sel < 0 || sel >= K) {
-    bank_gemm::poison_tile<T>(lane_out, M, N);
+    bank_gemm::poison_tile<T, OUT>(lane_out, M, N);
     return;
   }
   // the lane's (m, N) bank row, read in place
-  bank_gemm::BCopier<T, W> load(bank + static_cast<long long>(sel) * m * N, m,
-                                N, static_cast<int>(blockIdx.x) * T::BN);
-  bank_gemm::gemm_tile<T>(x + static_cast<long long>(p) * M * m, lane_out, M,
-                          m, N, load, reinterpret_cast<float*>(smem));
+  bank_gemm::BCopier<T, W, BANK> load(
+      bank + static_cast<long long>(sel) * m * N, m, N,
+      static_cast<int>(blockIdx.x) * T::BN);
+  bank_gemm::gemm_tile<T, X, OUT>(x + static_cast<long long>(p) * M * m,
+                                  lane_out, M, m, N, load,
+                                  reinterpret_cast<float*>(smem));
 }
 
 }  // namespace
@@ -98,4 +105,10 @@ cudaError_t kernel_attributes::bank_mxv_pop(int i, int* out) {
                   T::THREADS, T::SMEM, T::MIN_BLOCKS, out);
     });
   });
+}
+
+// checked.cuh's hook of this source's kernel.
+int ck::hooks::bank_mxv_pop(const long long* table, int n, long long* record,
+                            cudaStream_t stream) {
+  return ck::hook(kernel_attributes::BANK_MXV_POP, table, n, record, stream);
 }

@@ -32,9 +32,13 @@
 #include <stdint.h>
 
 #include "bank_gemm.cuh"
+#include "checked.cuh"
 #include "kernel_attributes.cuh"
 
 namespace {
+
+// The C entry's pointer parameters, in order (checked.cuh's extents).
+enum Param { X, Q2, Q4, Q8, Q16, SCALE, IDX, OUT };
 
 // How a block's threads share one container's (BK x BN) tile: R codes per
 // element along K (q2: 4, q4: 2, q8 and q16: 1), E bytes per element. Each
@@ -62,6 +66,7 @@ struct PackedLoader {
   int width;            // vector load bytes, divides N * E and base
   uint32_t w[WORDS];    // the held bytes of the next tile
 
+  // the container's parameter: Q2 + sel
   template <class G, int V, int E>
   __device__ __forceinline__ void load(int gr, int c) {
     const uint8_t* src = base + (static_cast<long long>(gr) * N + c) * E;
@@ -69,22 +74,27 @@ struct PackedLoader {
     for (int b = 0; b < G::RB; b += V) {
       const bool ok = gr < rows && c + b / E < N;  // whole vectors in or out
       if constexpr (V == 16) {
-        const uint4 v = ok ? *reinterpret_cast<const uint4*>(src + b)
-                           : make_uint4(0, 0, 0, 0);
+        const uint4 v =
+            ok ? CK_LD(Q2 + sel, reinterpret_cast<const uint4*>(src + b))
+               : make_uint4(0, 0, 0, 0);
         w[b / 4] = v.x; w[b / 4 + 1] = v.y; w[b / 4 + 2] = v.z;
         w[b / 4 + 3] = v.w;
       } else if constexpr (V == 8) {
-        const uint2 v = ok ? *reinterpret_cast<const uint2*>(src + b)
-                           : make_uint2(0, 0);
+        const uint2 v =
+            ok ? CK_LD(Q2 + sel, reinterpret_cast<const uint2*>(src + b))
+               : make_uint2(0, 0);
         w[b / 4] = v.x; w[b / 4 + 1] = v.y;
       } else if constexpr (V == 4) {
-        w[b / 4] = ok ? *reinterpret_cast<const uint32_t*>(src + b) : 0u;
+        w[b / 4] =
+            ok ? CK_LD(Q2 + sel, reinterpret_cast<const uint32_t*>(src + b))
+               : 0u;
       } else if constexpr (V == 2) {
-        const uint32_t v = ok ? *reinterpret_cast<const uint16_t*>(src + b)
-                              : 0u;
+        const uint32_t v =
+            ok ? CK_LD(Q2 + sel, reinterpret_cast<const uint16_t*>(src + b))
+               : 0u;
         w[b / 4] = (b % 4 ? w[b / 4] : 0u) | (v << (8 * (b % 4)));
       } else {
-        const uint32_t v = ok ? src[b] : 0u;
+        const uint32_t v = ok ? CK_LD(Q2 + sel, src + b) : 0u;
         w[b / 4] = (b % 4 ? w[b / 4] : 0u) | (v << (8 * (b % 4)));
       }
     }
@@ -150,13 +160,14 @@ struct PackedLoader {
       if constexpr (G::COLS % 4 == 0) {
 #pragma unroll
         for (int j = 0; j < G::COLS; j += 4) {
-          const float4 q =
-              *reinterpret_cast<const float4*>(sscale + c_local + j);
+          const float4 q = CK_SH_LD(
+              reinterpret_cast<const float4*>(sscale + c_local + j));
           sc[j] = q.x; sc[j + 1] = q.y; sc[j + 2] = q.z; sc[j + 3] = q.w;
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < G::COLS; ++j) sc[j] = sscale[c_local + j];
+        for (int j = 0; j < G::COLS; ++j)
+          sc[j] = CK_SH_LD(sscale + (c_local + j));
       }
 #pragma unroll
       for (int j = 0; j < G::COLS; ++j)
@@ -165,11 +176,11 @@ struct PackedLoader {
       if constexpr (G::COLS % 4 == 0) {
 #pragma unroll
         for (int j = 0; j < G::COLS; j += 4)
-          *reinterpret_cast<float4*>(dst + j) =
-              make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+          CK_SH_ST(reinterpret_cast<float4*>(dst + j),
+                   make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]));
       } else {
 #pragma unroll
-        for (int j = 0; j < G::COLS; ++j) dst[j] = v[j];
+        for (int j = 0; j < G::COLS; ++j) CK_SH_ST(dst + j, v[j]);
       }
     }
   }
@@ -208,12 +219,13 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
                         const int* __restrict__ idx, float* __restrict__ out,
                         int M, int m, int N, int width8, int width16) {
   extern __shared__ float4 smem[];
+  CK_SHARED_ARRAY(smem, SMEM<T>);
   float* sm = reinterpret_cast<float*>(smem);
   const int p = blockIdx.z;
-  const int sel = idx[p];  // uniform per block
+  const int sel = CK_LD(IDX, idx + p);  // uniform per block
   float* lane_out = out + static_cast<long long>(p) * M * N;
   if (sel < 0 || sel > 3) {
-    bank_gemm::poison_tile<T>(lane_out, M, N);
+    bank_gemm::poison_tile<T, OUT>(lane_out, M, N);
     return;
   }
   // the block's column scales, after the rings in shared memory (a global
@@ -222,8 +234,9 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
   const float* srow = scale + static_cast<long long>(sel) * scale_cols;
   float* sscale = sm + T::SMEM / 4;
   for (int j = threadIdx.x; j < T::BN; j += T::THREADS)
-    sscale[j] = scale_cols == 1 ? srow[0]
-                                : (col0 + j < N ? srow[col0 + j] : 0.0f);
+    CK_SH_ST(sscale + j, scale_cols == 1 ? CK_LD(SCALE, srow)
+                         : (col0 + j < N ? CK_LD(SCALE, srow + (col0 + j))
+                                         : 0.0f));
   __syncthreads();
   const void* container = sel == 0 ? static_cast<const void*>(q2)
                           : sel == 1 ? static_cast<const void*>(q4)
@@ -232,8 +245,8 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
   const int rows = sel == 0 ? (m + 3) / 4 : sel == 1 ? (m + 1) / 2 : m;
   PackedLoader<T> load{static_cast<const uint8_t*>(container), sscale, sel,
                        rows, m, N, col0, sel == 3 ? width16 : width8, {}};
-  bank_gemm::gemm_tile<T>(x + static_cast<long long>(p) * M * m, lane_out, M,
-                          m, N, load, sm);
+  bank_gemm::gemm_tile<T, X, OUT>(x + static_cast<long long>(p) * M * m,
+                                  lane_out, M, m, N, load, sm);
 }
 
 }  // namespace
@@ -274,4 +287,10 @@ cudaError_t kernel_attributes::bank_qmm_pop(int i, int* out) {
     return fill(bank_qmm_pop_kernel<T>, BANK_QMM_POP, i, 0, 0, T::THREADS,
                 SMEM<T>, T::MIN_BLOCKS, out);
   });
+}
+
+// checked.cuh's hook of this source's kernel.
+int ck::hooks::bank_qmm_pop(const long long* table, int n, long long* record,
+                            cudaStream_t stream) {
+  return ck::hook(kernel_attributes::BANK_QMM_POP, table, n, record, stream);
 }

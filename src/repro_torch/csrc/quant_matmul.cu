@@ -63,9 +63,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "checked.cuh"
 #include "kernel_attributes.cuh"
 
 namespace {
+
+// The C entry's pointer parameters, in order (checked.cuh's extents).
+enum Param { X, PACKED, SCALES, OUT };
 
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
@@ -88,9 +92,9 @@ template <bool VEC>
 __device__ __forceinline__ void load_word(const int8_t* __restrict__ p,
                                           int ncols, unsigned (&w)[W]) {
   if constexpr (VEC && W == 1) {
-    w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    w[0] = CK_LDG(PACKED, reinterpret_cast<const unsigned int*>(p));
   } else if constexpr (VEC && W == 2) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    const uint2 v = CK_LDG(PACKED, reinterpret_cast<const uint2*>(p));
     w[0] = v.x, w[1] = v.y;
   } else {
 #pragma unroll
@@ -100,7 +104,7 @@ __device__ __forceinline__ void load_word(const int8_t* __restrict__ p,
       for (int j = 0; j < 4; ++j)
         if (4 * i + j < ncols)
           w[i] |= static_cast<unsigned>(static_cast<uint8_t>(
-                      __ldg(p + 4 * i + j)))
+                      CK_LDG(PACKED, p + 4 * i + j)))
                   << (8 * j);
     }
   }
@@ -190,8 +194,7 @@ __device__ __forceinline__ void prefetch_stage(const int8_t* __restrict__ packed
     const int idx = 32 * h + lane;
     const long long r = row + idx / SECTORS;
     const int sector = col + 32 * (idx % SECTORS);
-    if (r < rows && sector < N)
-      asm volatile("prefetch.global.L2 [%0];" ::"l"(packed + r * N + sector));
+    if (r < rows && sector < N) CK_PREFETCH(PACKED, packed + r * N + sector);
   }
 }
 
@@ -227,7 +230,8 @@ __device__ __forceinline__ void run_row(const unsigned (&w)[W], unsigned magic,
   float xv[MT];
 #pragma unroll
   for (int r4 = 0; r4 < MT; r4 += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(xk + S * MT + r4);
+    const float4 v =
+        CK_SH_LD(reinterpret_cast<const float4*>(xk + S * MT + r4));
     xv[r4] = v.x, xv[r4 + 1] = v.y, xv[r4 + 2] = v.z, xv[r4 + 3] = v.w;
   }
   fma_word<BITS, MT, 0, S>(w[0], magic, xv, acc);
@@ -285,8 +289,9 @@ __device__ __forceinline__ void stage_x(const float* __restrict__ x,
         for (int r = 0; r < 4; ++r) {
           const int gr = row0 + (item / KQ) * 4 + r;
           v[b][r] = (gr < M && gk < K)
-                        ? __ldg(reinterpret_cast<const float4*>(
-                              x + static_cast<long long>(gr) * K + gk))
+                        ? CK_LDG(X, reinterpret_cast<const float4*>(
+                                        x + static_cast<long long>(gr) * K +
+                                        gk))
                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         }
       }
@@ -296,24 +301,29 @@ __device__ __forceinline__ void stage_x(const float* __restrict__ x,
         const int kk = (item % KQ) * 4, r0 = (item / KQ) * 4;
         const float f0 = x_scale<BITS>(kk), f1 = x_scale<BITS>(kk + 1),
                     f2 = x_scale<BITS>(kk + 2), f3 = x_scale<BITS>(kk + 3);
-        *reinterpret_cast<float4*>(xs + kk * MT + r0) = make_float4(
-            v[b][0].x * f0, v[b][1].x * f0, v[b][2].x * f0, v[b][3].x * f0);
-        *reinterpret_cast<float4*>(xs + (kk + 1) * MT + r0) = make_float4(
-            v[b][0].y * f1, v[b][1].y * f1, v[b][2].y * f1, v[b][3].y * f1);
-        *reinterpret_cast<float4*>(xs + (kk + 2) * MT + r0) = make_float4(
-            v[b][0].z * f2, v[b][1].z * f2, v[b][2].z * f2, v[b][3].z * f2);
-        *reinterpret_cast<float4*>(xs + (kk + 3) * MT + r0) = make_float4(
-            v[b][0].w * f3, v[b][1].w * f3, v[b][2].w * f3, v[b][3].w * f3);
+        CK_SH_ST(reinterpret_cast<float4*>(xs + kk * MT + r0),
+                 make_float4(v[b][0].x * f0, v[b][1].x * f0, v[b][2].x * f0,
+                             v[b][3].x * f0));
+        CK_SH_ST(reinterpret_cast<float4*>(xs + (kk + 1) * MT + r0),
+                 make_float4(v[b][0].y * f1, v[b][1].y * f1, v[b][2].y * f1,
+                             v[b][3].y * f1));
+        CK_SH_ST(reinterpret_cast<float4*>(xs + (kk + 2) * MT + r0),
+                 make_float4(v[b][0].z * f2, v[b][1].z * f2, v[b][2].z * f2,
+                             v[b][3].z * f2));
+        CK_SH_ST(reinterpret_cast<float4*>(xs + (kk + 3) * MT + r0),
+                 make_float4(v[b][0].w * f3, v[b][1].w * f3, v[b][2].w * f3,
+                             v[b][3].w * f3));
       }
     }
   } else {
     for (int e = threadIdx.x; e < MT * XK; e += THREADS) {
       const int r = e / XK, kk = e % XK;
       const int gr = row0 + r, gk = k0 + kk;
-      const float v = (gr < M && gk < K)
-                          ? x[static_cast<long long>(gr) * K + gk]
-                          : 0.0f;
-      xs[kk * MT + r] = v * x_scale<BITS>(kk);
+      const float v =
+          (gr < M && gk < K)
+              ? CK_LD(X, x + (static_cast<long long>(gr) * K + gk))
+              : 0.0f;
+      CK_SH_ST(xs + (kk * MT + r), v * x_scale<BITS>(kk));
     }
   }
 }
@@ -329,6 +339,7 @@ __global__ void __launch_bounds__(THREADS, Shape<MT>::MIN_BLOCKS)
   constexpr int PER = Pp::PER, XK = Pp::XK;
   static_assert(WARPS * MT * BN <= XK * MT, "the reduction fits x's slice");
   __shared__ __align__(16) float xs[XK * MT];
+  CK_SHARED_ARRAY(xs, sizeof(xs));
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int col0 = blockIdx.x * BN, row0 = blockIdx.y * MT;
   const int c0 = col0 + lane * COLS;
@@ -385,23 +396,25 @@ __global__ void __launch_bounds__(THREADS, Shape<MT>::MIN_BLOCKS)
   for (int r = 0; r < MT; ++r)
 #pragma unroll
     for (int v = 0; v < W; ++v)
-      *reinterpret_cast<float4*>(
-          &red[(warp * MT + r) * BN + lane * COLS + 4 * v]) =
-          make_float4(acc[r][4 * v], acc[r][4 * v + 1], acc[r][4 * v + 2],
-                      acc[r][4 * v + 3]);
+      CK_SH_ST(reinterpret_cast<float4*>(
+                   &red[(warp * MT + r) * BN + lane * COLS + 4 * v]),
+               make_float4(acc[r][4 * v], acc[r][4 * v + 1],
+                           acc[r][4 * v + 2], acc[r][4 * v + 3]));
   __syncthreads();
   for (int e = threadIdx.x; e < MT * BN; e += THREADS) {
     const int r = e / BN, cc = e % BN;
     const int gr = row0 + r, gc = col0 + cc;
     if (gr < M && gc < N) {
-      float sum = red[r * BN + cc];
+      float sum = CK_SH_LD(red + (r * BN + cc));
 #pragma unroll
       for (int w = 1; w < WARPS; ++w)
-        sum = __fadd_rn(sum, red[(w * MT + r) * BN + cc]);
+        sum = __fadd_rn(sum,
+                        CK_SH_LD(red + ((w * MT + r) * BN + cc)));
       if constexpr (BITS < 8)             // divide out 2^a(j), exactly
         sum = __fmul_rn(sum, __uint_as_float(
                                  (127u - col_shift(cc % 4)) << 23));
-      out[static_cast<long long>(gr) * N + gc] = __fmul_rn(sum, scales[gc]);
+      CK_ST(OUT, out + (static_cast<long long>(gr) * N + gc),
+            __fmul_rn(sum, CK_LD(SCALES, scales + gc)));
     }
   }
 }
@@ -505,4 +518,10 @@ cudaError_t kernel_attributes::quant_matmul(int i, int* out) {
   if (i < 0 || i >= static_cast<int>(sizeof(records) / sizeof(records[0])))
     return cudaErrorInvalidValue;
   return records[i](out);
+}
+
+// checked.cuh's hook of this source's kernel.
+int ck::hooks::quant_matmul(const long long* table, int n, long long* record,
+                            cudaStream_t stream) {
+  return ck::hook(kernel_attributes::QUANT_MATMUL, table, n, record, stream);
 }

@@ -48,9 +48,13 @@
 // same lane of a population launch.
 #include <cuda_runtime.h>
 
+#include "checked.cuh"
 #include "kernel_attributes.cuh"
 
 namespace {
+
+// The C entry's pointer parameters, in order (checked.cuh's extents).
+enum Param { UW, UF, UR, VF, VR, BF, BR, H, R, C_LAST };
 
 constexpr int TC = 8;              // time steps a prefetch stage
 constexpr int BLOCK = 256;         // threads a block
@@ -68,9 +72,9 @@ __device__ __forceinline__ void load_steps(
   for (int i = 0; i < TC; ++i) {
     if (t0 + i < T) {
       const long long at = in + static_cast<long long>(t0 + i) * ld;
-      xw[i] = __ldg(uw + at);
-      xf[i] = __ldg(uf + at);
-      xr[i] = __ldg(ur + at);
+      xw[i] = CK_LDG(UW, uw + at);
+      xf[i] = CK_LDG(UF, uf + at);
+      xr[i] = CK_LDG(UR, ur + at);
     }
   }
 }
@@ -89,8 +93,8 @@ __device__ __forceinline__ void run_steps(
           sigmoid_f(__fadd_rn(__fadd_rn(xr[i], __fmul_rn(vrj, c)), brj));
       c = __fadd_rn(__fmul_rn(f, c), __fmul_rn(__fsub_rn(1.0f, f), xw[i]));
       const long long at = out + static_cast<long long>(t0 + i) * n;
-      h[at] = __fmul_rn(rr, c);
-      r[at] = rr;
+      CK_ST(H, h + at, __fmul_rn(rr, c));
+      CK_ST(R, r + at, rr);
     }
   }
 }
@@ -115,7 +119,8 @@ __global__ void sru_scan_pop_kernel(const float* __restrict__ uw,
   const long long out = pb * T * n + j;
   float aw[TC], af[TC], ar[TC], bw[TC], bfs[TC], brs[TC];
   load_steps(uw, uf, ur, in, ld, 0, T, aw, af, ar);
-  const float vfj = vf[j], vrj = vr[j], bfj = bf[j], brj = br[j];
+  const float vfj = CK_LD(VF, vf + j), vrj = CK_LD(VR, vr + j),
+              bfj = CK_LD(BF, bf + j), brj = CK_LD(BR, br + j);
   float c = 0.0f;
   for (int t0 = 0; t0 < T; t0 += 2 * TC) {
     // buffer a holds steps t0.., b gets t0+TC.. while a is consumed, then a
@@ -126,7 +131,7 @@ __global__ void sru_scan_pop_kernel(const float* __restrict__ uw,
     load_steps(uw, uf, ur, in, ld, t0 + 2 * TC, T, aw, af, ar);
     run_steps(bw, bfs, brs, vfj, vrj, bfj, brj, c, h, r, out, n, t0 + TC, T);
   }
-  c_last[pb * n + j] = c;
+  CK_ST(C_LAST, c_last + (pb * n + j), c);
 }
 
 }  // namespace
@@ -155,4 +160,10 @@ cudaError_t kernel_attributes::sru_scan_pop(int i, int* out) {
   return kernel_attributes::fill(sru_scan_pop_kernel,
                                  kernel_attributes::SRU_SCAN_POP, 0, 0, 0,
                                  BLOCK, 0, 1, out);
+}
+
+// checked.cuh's hook of this source's kernel.
+int ck::hooks::sru_scan_pop(const long long* table, int n, long long* record,
+                            cudaStream_t stream) {
+  return ck::hook(kernel_attributes::SRU_SCAN_POP, table, n, record, stream);
 }

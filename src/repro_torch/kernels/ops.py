@@ -18,6 +18,10 @@ tensors to every callable registered with ``observe_launches`` (the
 contract checker, ``core/contracts.py``, sees the kernels' operands so);
 with none registered this costs one list test.
 
+Inside ``build.checked()`` (the kernel verifier's checked build) a wrapper
+first passes each pointer operand's extent to the library
+(``_pass_extents``); elsewhere that costs one test.
+
 Each wrapper also reports its work, by formula (``KernelCost``: the
 ``*_cost`` function beside it), to every counter registered with
 ``report_kernels`` (``roofline/counter.py``), on entry and before it
@@ -235,6 +239,35 @@ def _raise_on(err: int, name: str) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
+# csrc/kernel_attributes.cuh's kernel ids (its enum Kernel)
+KERNEL_IDS = {"bank_mxv_pop": 0, "bank_qmm_pop": 1, "quant_matmul": 2,
+              "sru_scan_pop": 3}
+
+
+def extent_bytes(t: torch.Tensor) -> int:
+    """The bytes a kernel may touch from ``t``'s first element on: a
+    contiguous tensor's own, a strided view's what its storage holds past
+    the view's offset (the scan's streams are column slices of one
+    array)."""
+    if t.is_contiguous():
+        return t.numel() * t.element_size()
+    return (t.untyped_storage().nbytes()
+            - t.storage_offset() * t.element_size())
+
+
+def _pass_extents(lib, name: str, dev: torch.device, *tensors) -> None:
+    """The checked build's extents of the next launch of ``name``: one
+    (base, bytes, element bytes) a pointer operand, in the order of the C
+    entry's pointer parameters."""
+    vals = [v for t in tensors
+            for v in (t.data_ptr(), extent_bytes(t), t.element_size())]
+    table = (ctypes.c_longlong * len(vals))(*vals)
+    with torch.cuda.device(dev):
+        err = lib.repro_checked_extents(KERNEL_IDS[name], ctypes.cast(
+            table, ctypes.c_void_p), len(tensors), _stream(dev))
+    _raise_on(err, f"{name} extents")
+
+
 def _stream_ld(t: torch.Tensor, shape) -> int:
     """Row stride of a stream whose channels are contiguous and whose rows
     are evenly spaced (a contiguous array, or a column slice of one)."""
@@ -277,6 +310,8 @@ def _launch_scan(uw, uf, ur, v_f, v_r, b_f, b_r):
     _check(len(lds) == 1,
            lambda: f"{name}: streams have different row strides {lds}")
     lib = build.load()
+    if build.checking():
+        _pass_extents(lib, name, dev, uw, uf, ur, *vecs, h, r, c_last)
     with torch.cuda.device(dev):
         err = lib.repro_sru_scan_pop(
             _ptr(uw), _ptr(uf), _ptr(ur), lds.pop(),
@@ -481,6 +516,8 @@ def bank_mxv_pop(x, bank, idx, config: Optional[int] = None):
     cfg = _bank_config_for(name, dev, P, M, N, config)
     width = copy_width(4 * N, bank.data_ptr())
     lib = build.load()
+    if build.checking():
+        _pass_extents(lib, name, dev, x, bank, idx, out)
     with torch.cuda.device(dev):
         err = lib.repro_bank_mxv_pop(_ptr(x), _ptr(bank), _ptr(idx), _ptr(out),
                                      P, M, m, N, K, cfg, width, _stream(dev))
@@ -535,6 +572,9 @@ def bank_qmm_pop(x, packed, idx, config: Optional[int] = None):
     width16 = copy_width(2 * N, packed["q16"].data_ptr(),
                          widths=(16, 8, 4, 2))
     lib = build.load()
+    if build.checking():
+        _pass_extents(lib, name, dev, x, *(packed[k] for k in (
+            "q2", "q4", "q8", "q16")), scale, idx, out)
     with torch.cuda.device(dev):
         err = lib.repro_bank_qmm_pop(
             _ptr(x), _ptr(packed["q2"]), _ptr(packed["q4"]), _ptr(q8),
@@ -623,6 +663,8 @@ def quant_matmul(x, packed_w, scales, bits: int):
     if out.numel() == 0 or K == 0:
         return out.zero_()
     lib = build.load()
+    if build.checking():
+        _pass_extents(lib, name, dev, x, packed_w, scales, out)
     with torch.cuda.device(dev):
         err = lib.repro_quant_matmul(_ptr(x), _ptr(packed_w), _ptr(scales),
                                      _ptr(out), M, K, N, bits, _stream(dev))

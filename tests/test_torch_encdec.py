@@ -93,6 +93,38 @@ def test_encode_and_forward_match_reference(audio):
     np.testing.assert_allclose(_np(logits), _np(want), atol=0.15)
 
 
+def test_encoder_parts_from_the_jitted_reference_only_in_rms_norm(
+        audio, monkeypatch):
+    """ROADMAP fault 11's residual on this fixture is the norm: with the
+    reference's own ``rms_norm`` (jitted: XLA's mean in windows of 32 and
+    its ``rsqrt`` estimate) put in the port's place, the encoder's output
+    equals the jitted reference's bitwise."""
+    from repro.models import common as RC
+    rcfg, tcfg, rparams, tparams, batch, tbatch = audio
+    plain = TC.rms_norm
+    norms = {}
+
+    def reference_norm(x, w, eps=1e-5):
+        f = norms.setdefault(eps, jax.jit(
+            lambda a, b: RC.rms_norm(a, b, eps)))
+
+        def to_jax(t):
+            a = jnp.asarray(t.detach().float().numpy())
+            return a.astype(jnp.bfloat16) if t.dtype == torch.bfloat16 \
+                else a
+        out = np.asarray(jnp.asarray(f(to_jax(x), to_jax(w)), jnp.float32))
+        return torch.from_numpy(out).to(x.dtype)
+
+    enc = jax.jit(RE.encode, static_argnums=(1,))(rparams, rcfg,
+                                                  batch["frames"])
+    assert float(np.abs(_np(TE.encode(tparams, tcfg, tbatch["frames"]))
+                        - _np(enc)).max()) <= 0.05
+    monkeypatch.setattr(TC, "rms_norm", reference_norm)
+    got = TE.encode(tparams, tcfg, tbatch["frames"])
+    assert TC.rms_norm is not plain and norms
+    np.testing.assert_array_equal(_np(got), _np(enc))
+
+
 def test_loss_and_gradients_match_reference(audio):
     rcfg, tcfg, rparams, tparams, batch, tbatch = audio
     r_loss, r_grads = jax.jit(jax.value_and_grad(
